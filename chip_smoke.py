@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch/CUDA port (graphgp_tpu_torch).
 
-Drives the port's main path, the million-node GRF-Thompson BO flagship, on
-one CUDA card, and holds each hand-written kernel of that path against its
-plain PyTorch version on the flagship's own tensors:
+Drives the port's main paths on one CUDA card, the million-node GRF-Thompson
+BO flagship and the scaling experiment with full-space prediction, and holds
+each hand-written kernel of those paths against its plain PyTorch version on
+the paths' own tensors:
 
   1. prints the card's name and power limit, builds the kernels (one nvcc);
   2. small-input agreement: a 30x30 grid through the card's path and the
-     plain CPU path, same draws, same answers;
+     plain CPU path, same draws, same answers; then full-space prediction on
+     a 256-node ring and a 15x15 grid, card against CPU;
   3. the flagship: 1000x1000 grid, WalkConfig(1000, 0.1, 5),
      preprocess_graph(layout="auto"), then run_optimization with
      GRFThompson(kind="free") at batch 100 from 10 initial points; the kernel
      launch counters are zeroed just before and read just after;
   4. a profiled fit of PROFILE_EPOCHS epochs at the final observation set:
      wall and device time per epoch, the device's idle share, top kernels;
-  5. K1 (stencil product, forward, transpose, autograd) and K3 (ELL →
-     stencil) against their plain versions, and their times (CUDA events)
-     beside the plain version's, a library call's where one exists, and the
-     bound from this run's shapes.
+  5. the scaling path through graphgp_tpu_torch.cli.scaling's phase functions
+     at the reference protocol's top size (ring N = 2^20, walks_per_node 100,
+     L = 3, train N/2, 50 Adam epochs, 64 pathwise samples) and at 256 and
+     1024, where the dense sampler and the exact arm run too; counters zeroed
+     just before and read just after;
+  6. the CG bench shape on the flagship's stencil (mask = every second node,
+     B = 8, 20 iterations at tol 0): iterations/s through the fused K2 solve
+     and through the K1 composition it replaces;
+  7. K1 (stencil product, forward, transpose, autograd), K2a and K2b (the
+     fused masked-Gram passes) and K3 (ELL → stencil) against their plain
+     versions, and their times (CUDA events) beside the plain version's, a
+     library call's where one exists, and the bound from this run's shapes.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -29,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +62,11 @@ DATA_SEED = 42
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 REL_TOL_K1 = 1e-5  # relative to max |ref|: fp32 sums of 41 terms in another order (fma)
+REL_TOL_K2 = 1e-5  # K2a/K2b: the same sums; the fused dot: N fp32 terms in another order
+
+SCALING_SIZES = (256, 1024, 2**20)  # the reference protocol's small sizes and its top size
+CG_BENCH_BATCH = 8
+CG_BENCH_ITERS = 20
 
 
 def log(msg: str) -> None:
@@ -149,6 +165,43 @@ def small_agreement(device) -> None:
         check(rel <= 1e-4, f"small-input {name} disagrees: rel {rel}")
 
 
+def small_agreement_full_space(device) -> None:
+    """pathwise_predict(full_space=True): the card (K1 and K2) against the
+    plain CPU path on one stencil, same draws. The ring at L = 3 has offsets
+    in ±2, all wrapping; the 15x15 grid leaves a tail in K2's last block."""
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch.data import synthetic
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.preprocessor import preprocess_graph
+    from graphgp_tpu_torch.walker import WalkConfig
+
+    settings = iterative.CGSettings(cg_tol=1e-6, cg_max_iters=300)
+    for graph_type, n in (("ring", 256), ("grid", 225)):
+        data = synthetic.generate(graph_type, n, seed=0)
+        cfg = WalkConfig(walks_per_node=100, p_halt=0.1, max_walk_length=3)
+        feats_cpu = preprocess_graph(data["adjacency"], cfg, layout="auto", device="cpu")
+        rng = np.random.default_rng(2)
+        perm = rng.permutation(n)
+        tr, te = np.sort(perm[: n // 2]), np.sort(perm[n // 2:])
+        eps1 = rng.standard_normal((20, n)).astype(np.float32)  # 20 samples: two K2 chunks
+        eps2 = rng.standard_normal((20, tr.size)).astype(np.float32)
+        modulator = np.asarray([1.0, 0.5, 0.25], np.float32)
+        out = {}
+        for d in ("cpu", device):
+            t = lambda a: torch.from_numpy(a).to(d)
+            params = {"raw_noise": torch.tensor(-2.0, device=d), "modulator": t(modulator)}
+            out[d] = iterative.pathwise_predict(
+                feats_cpu.to(d), params, t(tr), t(data["y_observed"][tr]), t(te),
+                num_samples=20, settings=settings, full_space=True, eps1=t(eps1), eps2=t(eps2),
+            ).cpu()
+        err, rel = rel_err(out[device], out["cpu"])
+        log(f"small-input agreement full-space pathwise, {graph_type} {n}: "
+            f"max abs err {err:.3e} (rel {rel:.3e})")
+        check(rel <= 1e-4, f"small-input full-space {graph_type} disagrees: rel {rel}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the flagship main path
 # ---------------------------------------------------------------------------
@@ -238,10 +291,22 @@ def flagship(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def fit_profile(device, flag: dict) -> None:
+def device_events(fn) -> list:
+    """The device activity (kernels and copies) torch.profiler records while
+    ``fn()`` runs to its end; op rows, which repeat their kernels' time, are
+    left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def fit_profile(device, flag: dict) -> None:
+    import torch
 
     from graphgp_tpu_torch.gp import iterative
 
@@ -257,11 +322,8 @@ def fit_profile(device, flag: dict) -> None:
     iterative.fit(flag["feats"], train_idx, y_t, num_steps=PROFILE_EPOCHS, **args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_EPOCHS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        iterative.fit(flag["feats"], train_idx, y_t, num_steps=PROFILE_EPOCHS, **args)
-        torch.cuda.synchronize()
-    # device activity only (kernels, copies); op rows repeat their kernels' time
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_events = device_events(
+        lambda: iterative.fit(flag["feats"], train_idx, y_t, num_steps=PROFILE_EPOCHS, **args))
     dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / PROFILE_EPOCHS
     by_name: dict = {}
     for e in dev_events:
@@ -280,7 +342,179 @@ def fit_profile(device, flag: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernels against their plain versions, and their times
+# Phase 5: the scaling path (full-space prediction through K2)
+# ---------------------------------------------------------------------------
+
+
+def scaling_path(device) -> dict:
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch.cli import scaling
+    from graphgp_tpu_torch.cuda_kernels import gram as k2
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+    from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
+    from graphgp_tpu_torch.data.synthetic import generate_ring_data
+
+    # the protocol's defaults: walks_per_node 100, p_halt 0.1, L 3, 50 Adam
+    # epochs at lr 0.1, cg_tol 1e-2, 64 pathwise samples
+    args = scaling.build_parser().parse_args(
+        ["--sizes", *map(str, SCALING_SIZES), "--device", device])
+    args.cache_dir = None  # walk every time: no step-matrix cache on disk
+    log(f"scaling path: ring sizes {SCALING_SIZES}, walks_per_node {args.walks_per_node}, "
+        f"L {args.max_walk_length}, {args.train_epochs} epochs, "
+        f"{args.num_pathwise_samples} pathwise samples, cg_tol {args.cg_tol}; nothing cut")
+
+    # record what each fused solve was given and how many iterations it took
+    solves = []
+    last_call = {}
+    fused_solve = k2.gram_cg
+
+    def recording_solve(phi, noise_var, mask, b_rhs, **kwargs):
+        res = fused_solve(phi, noise_var, mask, b_rhs, **kwargs)
+        solves.append((b_rhs.shape[1], b_rhs.shape[0], res.iterations))
+        last_call.update(phi=phi, noise_var=noise_var, mask=mask, b_rhs=b_rhs)
+        return res
+
+    k1.launches = k3.launches = 0
+    k2.rmv_mask_launches = k2.mv_epilogue_launches = 0
+    records: list = []
+    k2.gram_cg = recording_solve
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scaling.run_rw_phase(list(SCALING_SIZES), args, records)
+    scaling.run_gp_phase(list(SCALING_SIZES), args, records, exact_mode=False)
+    scaling.run_gp_phase([n for n in SCALING_SIZES if n <= args.exact_max], args, records,
+                         exact_mode=True)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    k2.gram_cg = fused_solve
+    launches = {"stencil_matvec": k1.launches, "ell_to_stencil": k3.launches,
+                "gram_rmv_mask": k2.rmv_mask_launches,
+                "gram_mv_epilogue": k2.mv_epilogue_launches}
+
+    by = {(r["phase"], r["n_nodes"]): r for r in records}
+    for n in SCALING_SIZES:
+        rw, it = by[("rw", n)], by[("iterative_gp", n)]
+        iters = [i for (nn, _, i) in solves if nn == n]
+        steady = iters[len(iters) // 2:]  # each size predicts twice; the second is the timed one
+        line = (f"scaling n={n}: walk+consolidate {rw['rw_seconds']:.3f} s "
+                f"({rw['walks_per_s']:,.0f} walks/s), train {it['train_seconds']:.2f} s, "
+                f"predict {it['predict_seconds']:.3f} s, rmse {it['rmse']:.4f}, "
+                f"CG iterations of the predict solve per 16-row chunk {steady}")
+        if ("exact_gp", n) in by:
+            ex = by[("exact_gp", n)]
+            line += (f"; exact arm: train {ex['train_seconds']:.2f} s, predict "
+                     f"{ex['predict_seconds']:.3f} s, rmse {ex['rmse']:.4f}")
+        if "dense_rw_seconds" in rw:
+            line += f"; dense sampler {rw['dense_rw_seconds']:.3f} s"
+        log(line)
+    log(f"scaling path total: {total_s:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"launches on the scaling path: {launches}")
+
+    check(launches["gram_rmv_mask"] > 0, "K2a was not launched on the scaling path")
+    check(launches["gram_rmv_mask"] == launches["gram_mv_epilogue"],
+          "K2a and K2b launch counts differ")
+    check(launches["stencil_matvec"] > 0, "K1 was not launched on the scaling path")
+    check(launches["ell_to_stencil"] > 0, "K3 was not launched on the scaling path")
+    check(launches["gram_rmv_mask"] == sum(i for (_, _, i) in solves),
+          "K2 launches do not add up to the fused solves' iterations")
+    for n in SCALING_SIZES:
+        y_std = float(generate_ring_data(n, seed=args.seed)["y_observed"].std())
+        phases = ["iterative_gp"] + (["exact_gp"] if n <= args.exact_max else [])
+        for phase in phases:
+            check((phase, n) in by, f"{phase} did not run at n={n}")
+            rmse = by[(phase, n)]["rmse"]
+            check(np.isfinite(rmse) and rmse < y_std,
+                  f"{phase} n={n}: rmse {rmse} is not below the targets' std {y_std}")
+        check(np.isfinite(by[("rw", n)]["walks_per_s"]), "walk rate not finite")
+    check(last_call["b_rhs"].shape[1] == SCALING_SIZES[-1], "last fused solve is not the top size")
+    return {"launches": launches, "last_call": last_call, "records": records}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the CG bench shape on the flagship's stencil
+# ---------------------------------------------------------------------------
+
+
+def device_busy_ms(fn) -> float:
+    """Milliseconds of device activity (kernels and copies) inside ``fn()``;
+    0.0 if the profiler saw no device events."""
+    return sum(e.time_range.elapsed_us() for e in device_events(fn)) / 1e3
+
+
+def cg_bench(device, flag: dict) -> dict:
+    """Grid N = 1e6, S = 41, n_train = N/2, B = 8, 20 CG iterations at tol 0:
+    the fused solve (one K2a and one K2b per iteration) beside the composition
+    it replaces (two K1 launches plus elementwise passes per iteration)."""
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import gram as k2
+    from graphgp_tpu_torch.features import contract
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.gp import params as P
+    from graphgp_tpu_torch.linalg import batched_cg
+
+    feats, params = flag["feats"], flag["params"]
+    n = feats.num_nodes
+    with torch.no_grad():
+        phi = contract(feats, params["modulator"])
+        noise_var = P.noise_variance(params)
+    mask = torch.zeros(n, device=device)
+    mask[::2] = 1.0
+    gen = torch.Generator(device=device).manual_seed(1)
+    b = torch.randn((CG_BENCH_BATCH, n), generator=gen, device=device) * mask[None, :]
+    matvec = iterative.make_gram_matvec_bm_full()
+
+    def fused():
+        return k2.gram_cg(phi, noise_var, mask, b, tol=0.0, max_iters=CG_BENCH_ITERS)
+
+    def composed():
+        with torch.no_grad():
+            return batched_cg(matvec, (phi, noise_var, mask), b, tol=0.0,
+                              max_iters=CG_BENCH_ITERS)
+
+    def seconds(fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    # in turns, so both see the same card state
+    times = {"fused": [], "composed": []}
+    for name, fn in (("composed", composed), ("fused", fused), ("fused", fused),
+                     ("composed", composed)):
+        times[name].append(seconds(fn))
+    res_f, res_c = fused(), composed()
+    check(res_f.iterations == res_c.iterations == CG_BENCH_ITERS, "CG bench iteration count")
+    err, rel = rel_err(res_f.x, res_c.x)
+    check(rel <= 1e-3, f"fused CG and the K1 composition disagree: rel {rel}")
+    s_f, s_c = min(times["fused"]), min(times["composed"])
+    busy = device_busy_ms(fused)
+    out = {"fused_iters_per_s": CG_BENCH_ITERS / s_f, "composed_iters_per_s": CG_BENCH_ITERS / s_c}
+    log(f"CG bench N={n} S={feats.mats.num_offsets} n_train={n // 2} B={CG_BENCH_BATCH} "
+        f"{CG_BENCH_ITERS} iterations: fused K2 solve {out['fused_iters_per_s']:.1f} iters/s "
+        f"({s_f * 1e3 / CG_BENCH_ITERS:.3f} ms/iteration; both runs {times['fused']}), "
+        f"K1 composition {out['composed_iters_per_s']:.1f} iters/s "
+        f"({s_c * 1e3 / CG_BENCH_ITERS:.3f} ms/iteration; both runs {times['composed']}); "
+        f"solutions agree to rel {rel:.3e}")
+    if busy > 0:
+        log(f"CG bench fused solve: device busy {busy / CG_BENCH_ITERS:.3f} ms/iteration "
+            f"(profiled), idle share {max(0.0, 1 - busy / (s_f * 1e3)):.3f} of the unprofiled "
+            "wall time: the host's launches and one synchronize per iteration")
+    else:
+        log("CG bench: the profiler saw no device time; idle share not measured")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
 
 
@@ -300,6 +534,138 @@ def _sparse_phi(w, offsets):
         return torch.sparse_csr_tensor(
             crow, cols.reshape(-1), vals.reshape(-1), (n, n), check_invariants=False
         )
+
+
+def k2_check(label: str, w, w_shift, offs, mask, nv, v, launches=None) -> list:
+    """K2a and K2b on one set of tensors: against their plain versions, a
+    second launch bit-identical, and their times beside the plain version's,
+    the K1 composition's and a sparse-product yardstick's. Returns the two
+    rows of the kernels line when ``launches`` is given."""
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import gram as k2
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+
+    s, n = w.shape
+    b = v.shape[0]
+    neg = tuple(-o for o in offs)
+    m = mask[None, :]
+
+    t = k2.rmv_mask_cuda(w_shift, mask, v, neg)
+    t_ref = k2.rmv_mask_plain(w_shift, mask, v, neg)
+    err_a, rel_a = rel_err(t, t_ref)
+    check(rel_a <= REL_TOL_K2, f"K2a {label}: rel err {rel_a}")
+    check(torch.equal(t, k2.rmv_mask_cuda(w_shift, mask, v, neg)), f"K2a {label}: not repeatable")
+    out, dot = k2.mv_epilogue_cuda(w, t, mask, v, nv, offs)
+    out_ref, dot_ref = k2.mv_epilogue_plain(w, t, mask, v, nv, offs)
+    err_b, rel_b = rel_err(out, out_ref)
+    rel_dot = float(((dot - dot_ref).abs() / dot_ref.abs().clamp(min=1e-30)).max())
+    check(rel_b <= REL_TOL_K2, f"K2b {label}: rel err {rel_b}")
+    check(rel_dot <= REL_TOL_K2, f"K2b {label}: fused dot rel err {rel_dot}")
+    out2, dot2 = k2.mv_epilogue_cuda(w, t, mask, v, nv, offs)
+    check(torch.equal(out, out2) and torch.equal(dot, dot2), f"K2b {label}: not repeatable")
+    check(torch.equal(out[:, mask == 0], v[:, mask == 0]), f"K2b {label}: identity rows changed")
+
+    ms_a = cuda_ms(lambda: k2.rmv_mask_cuda(w_shift, mask, v, neg))
+    ms_b = cuda_ms(lambda: k2.mv_epilogue_cuda(w, t, mask, v, nv, offs))
+    plain_a = cuda_ms(lambda: k2.rmv_mask_plain(w_shift, mask, v, neg), reps=5, warmup=1)
+    plain_b = cuda_ms(lambda: k2.mv_epilogue_plain(w, t, mask, v, nv, offs), reps=5, warmup=1)
+    # what the kernels fuse: a K1 launch plus the elementwise passes around it
+    comp_a = cuda_ms(lambda: k1.stencil_matvec_cuda(w_shift, v * m, neg))
+
+    def composed_b():
+        o = k1.stencil_matvec_cuda(w, t, offs) * m + nv * (v * m) + (v - v * m)
+        return o, (v * o).sum(dim=1)
+
+    comp_b = cuda_ms(composed_b)
+    # library yardstick: torch.sparse.mm on Φᵀ / Φ as CSR, plus the same elementwise work
+    phi_t_csr = _sparse_phi(w_shift, neg)
+    v_t, m_col = v.T.contiguous(), mask[:, None]
+    lib_t = torch.sparse.mm(phi_t_csr, v_t * m_col)
+    _, rel_lib = rel_err(lib_t.T, t_ref)
+    check(rel_lib <= 1e-4, f"K2a {label}: sparse-product yardstick disagrees: rel {rel_lib}")
+    lib_a = cuda_ms(lambda: torch.sparse.mm(phi_t_csr, v_t * m_col), reps=10, warmup=2)
+    del phi_t_csr
+    phi_csr = _sparse_phi(w, offs)
+    t_t = t.T.contiguous()
+
+    def library_b():
+        o = m_col * torch.sparse.mm(phi_csr, t_t) + (nv * m_col) * v_t + (1.0 - m_col) * v_t
+        return o, (v_t * o).sum(dim=0)
+
+    _, rel_lib = rel_err(library_b()[0].T, out_ref)
+    check(rel_lib <= 1e-4, f"K2b {label}: sparse-product yardstick disagrees: rel {rel_lib}")
+    lib_b = cuda_ms(library_b, reps=10, warmup=2)
+    del phi_csr
+    bnd_a, by_a = bound_ms(4.0 * (s * n + 2 * b * n + n), 2.0 * s * b * n + b * n * s)
+    bnd_b, by_b = bound_ms(4.0 * (s * n + 3 * b * n + n), 2.0 * s * b * n + 7.0 * b * n)
+    log(f"K2a gram_rmv_mask {label} B={b} S={s} N={n}: {ms_a:.4f} ms, plain {plain_a:.4f} ms, "
+        f"mask pass + K1 {comp_a:.4f} ms, mask pass + torch.sparse.mm {lib_a:.4f} ms, "
+        f"bound {bnd_a:.4f} ms ({by_a}); max abs err {err_a:.3e} (rel {rel_a:.3e})")
+    log(f"K2b gram_mv_epilogue {label} B={b} S={s} N={n}: {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
+        f"K1 + epilogue passes {comp_b:.4f} ms, torch.sparse.mm + epilogue passes {lib_b:.4f} ms, "
+        f"bound {bnd_b:.4f} ms ({by_b}); max abs err {err_b:.3e} (rel {rel_b:.3e}), "
+        f"dot rel {rel_dot:.3e}; second launches bit-identical")
+    if launches is None:
+        return []
+    common = {"route": "cuda", "source": "graphgp_tpu_torch/csrc/gram.cu"}
+    return [
+        {"name": "gram_rmv_mask", **common,
+         "replaces": "graphgp_tpu/pallas_kernels/gram.py:200",
+         "launches": launches["gram_rmv_mask"], "max_abs_err": err_a, "ms": ms_a,
+         "plain_ms": plain_a, "bound_ms": bnd_a, "bound_by": by_a, "library_ms": lib_a},
+        {"name": "gram_mv_epilogue", **common,
+         "replaces": "graphgp_tpu/pallas_kernels/gram.py:218",
+         "launches": launches["gram_mv_epilogue"], "max_abs_err": err_b, "ms": ms_b,
+         "plain_ms": plain_b, "bound_ms": bnd_b, "bound_by": by_b, "library_ms": lib_b},
+    ]
+
+
+def k2_checks(device, flag: dict, scal: dict) -> list:
+    """K2 at the scaling path's own tensors (the last fused solve of the run:
+    ring N = 2^20, a 16-row chunk of the 64 pathwise residuals), which give
+    the rows of the kernels line, and on the flagship's stencil at the CG
+    bench shape for B in {1, 8, 16}; then a 20-iteration fused solve against
+    the same loop over the plain versions."""
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import gram as k2
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+    from graphgp_tpu_torch.features import contract
+    from graphgp_tpu_torch.gp import params as P
+
+    call = scal["last_call"]
+    phi, n = call["phi"], call["phi"].num_nodes
+    offs = tuple(k1.center_offsets(phi.offsets, n).tolist())
+    nv = call["noise_var"].detach().reshape(1)
+    rows = k2_check("scaling path, ring", phi.w.contiguous(), phi.w_shift.contiguous(), offs,
+                    call["mask"], nv, call["b_rhs"].contiguous(), launches=scal["launches"])
+
+    feats, params = flag["feats"], flag["params"]
+    with torch.no_grad():
+        phi = contract(feats, params["modulator"])
+        nv = P.noise_variance(params).reshape(1)
+    n = feats.num_nodes
+    offs = tuple(k1.center_offsets(feats.mats.offsets, n).tolist())
+    mask = torch.zeros(n, device=device)
+    mask[::2] = 1.0
+    gen = torch.Generator(device=device).manual_seed(2)
+    for b in (1, CG_BENCH_BATCH, 16):
+        v = torch.randn((b, n), generator=gen, device=device)
+        k2_check("CG bench shape, grid", phi.w.contiguous(), phi.w_shift.contiguous(), offs,
+                 mask, nv, v)
+    rhs = torch.randn((CG_BENCH_BATCH, n), generator=gen, device=device) * mask[None, :]
+    got = k2.gram_cg(phi, nv, mask, rhs, tol=0.0, max_iters=CG_BENCH_ITERS)
+    ref = k2.gram_cg_plain(phi, nv, mask, rhs, tol=0.0, max_iters=CG_BENCH_ITERS)
+    err, rel = rel_err(got.x, ref.x)
+    log(f"K2 gram_cg vs gram_cg_plain, {CG_BENCH_ITERS} iterations at the CG bench shape: "
+        f"max abs err {err:.3e} (rel {rel:.3e})")
+    check(got.iterations == ref.iterations == CG_BENCH_ITERS, "gram_cg iteration count")
+    check(rel <= 1e-4, f"gram_cg disagrees with gram_cg_plain: rel {rel}")
+    check(torch.equal(got.x, k2.gram_cg(phi, nv, mask, rhs, tol=0.0,
+                                        max_iters=CG_BENCH_ITERS).x),
+          "gram_cg: a repeated solve is not bit-identical")
+    return rows
 
 
 def kernel_checks(device, flag: dict) -> list:
@@ -413,12 +779,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "error" in line.lower() or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", _build.build_log)]
+    spills = [int(x) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                            _build.build_log) for x in pair]
+    if regs:
+        log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, "
+            f"largest spill {max(spills, default=0)} bytes")
 
     t0 = time.perf_counter()
     small_agreement(device)
+    small_agreement_full_space(device)
     log(f"small-input agreement: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     flag = flagship(device)
@@ -427,7 +797,15 @@ def main() -> int:
     fit_profile(device, flag)
     log(f"fit profile: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    rows = kernel_checks(device, flag)
+    scal = scaling_path(device)
+    log(f"scaling path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cg_bench(device, flag)
+    log(f"CG bench: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k1_row, k3_row = kernel_checks(device, flag)
+    k2a_row, k2b_row = k2_checks(device, flag, scal)
+    rows = [k1_row, k3_row, k2a_row, k2b_row]
     log(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s")
 
     log(card)

@@ -11,7 +11,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .features import EllStepMatrices, StencilStepMatrices
+from .features import DenseFeatures, EllStepMatrices, StencilStepMatrices
 
 PARAM_NAMES = ("raw_noise", "modulator", "raw_beta", "raw_sigma_f")
 
@@ -53,3 +53,11 @@ def stencil_from_numpy(vals: np.ndarray, offsets: np.ndarray, device="cpu") -> S
         vals=torch.from_numpy(vals.astype(np.float32)).to(device),
         offsets=offsets.astype(np.int32),
     )
+
+
+def dense_from_numpy(step_matrices: np.ndarray, device="cpu") -> DenseFeatures:
+    """Dense features from an (L, N, Nt) step-matrix array."""
+    step_matrices = np.asarray(step_matrices)
+    if step_matrices.ndim != 3:
+        raise ValueError(f"step_matrices {step_matrices.shape} must be (L, N, Nt)")
+    return DenseFeatures(torch.from_numpy(step_matrices.astype(np.float32)).to(device))

@@ -58,6 +58,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stencil_matvec_f32.restype = i
     lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, p]
     lib.ell_to_stencil_f32.restype = i
+    lib.gram_rmv_mask_f32.argtypes = [p, p, p, p, p, i, i, ll, p]
+    lib.gram_rmv_mask_f32.restype = i
+    lib.gram_mv_epilogue_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, ll, p]
+    lib.gram_mv_epilogue_f32.restype = i
+    lib.gram_num_blocks.argtypes = [ll]
+    lib.gram_num_blocks.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

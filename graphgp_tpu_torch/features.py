@@ -1,8 +1,10 @@
-"""Step-matrix feature layouts: ELL-consolidated and stencil.
+"""Step-matrix feature layouts: dense, ELL-consolidated and stencil.
 
 Counterpart of the ELL-consolidation and stencil parts of
 ``graphgp_tpu/features.py``:
 
+* :class:`DenseFeatures`: dense (L, N, Nt) step matrices, the small-N regime
+  of the exact GP; :func:`ell_to_dense` builds them from ELL.
 * :class:`EllStepMatrices`: per-row deduplicated (cols, vals) step matrices
   with a fixed row capacity, built from a walk log by one sort and a
   segment sum (:func:`consolidate`).
@@ -38,6 +40,47 @@ _ITEM_12 = "not ported yet (ROADMAP Queue 1 item 12: layouts for unstructured gr
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseFeatures:
+    """Φ built from dense (L, N, Nt) step matrices: the small-N regime."""
+
+    step_matrices: torch.Tensor  # (L, N, Nt)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.step_matrices.shape[1]
+
+    @property
+    def num_target_nodes(self) -> int:
+        return self.step_matrices.shape[2]
+
+    @property
+    def max_walk_length(self) -> int:
+        return self.step_matrices.shape[0]
+
+    def _f(self, f) -> torch.Tensor:
+        return torch.as_tensor(f, dtype=torch.float32, device=self.step_matrices.device)
+
+    def phi(self, f) -> torch.Tensor:
+        return torch.einsum("l,lij->ij", self._f(f), self.step_matrices)
+
+    def matvec(self, f, v):
+        return self.phi(f) @ v
+
+    def rmatvec(self, f, v):
+        return self.phi(f).T @ v
+
+    def matvec_bm(self, f, v):
+        return v @ self.phi(f).T
+
+    def rmatvec_bm(self, f, v):
+        return v @ self.phi(f)
+
+    def rows(self, f, idx) -> torch.Tensor:
+        """``Φ[idx, :]`` (R, Nt)."""
+        return torch.einsum("l,lij->ij", self._f(f), self.step_matrices[:, idx, :])
+
+
+@dataclasses.dataclass(frozen=True)
 class EllStepMatrices:
     """Per-step sparse matrices in stacked ELL layout.
 
@@ -61,6 +104,9 @@ class EllStepMatrices:
     @property
     def row_capacity(self) -> int:
         return self.cols.shape[2]
+
+    def nnz(self) -> torch.Tensor:
+        return (self.vals != 0).sum()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,6 +369,19 @@ def contract(feats, f: torch.Tensor) -> ContractedStencil:
     offsets = feats.mats.offsets
     w_shift = k_stencil.shifted_weights(w, k_stencil.center_offsets(offsets, w.shape[1]))
     return ContractedStencil(w=w, w_shift=w_shift, offsets=offsets)
+
+
+def ell_to_dense(mats: EllStepMatrices) -> torch.Tensor:
+    """(L, N, Nt) dense reconstruction, for tests and small N: one flat
+    scatter-add (padded slots add 0 to column 0)."""
+    l, n, r = mats.cols.shape
+    nt = mats.num_target_nodes
+    dev = mats.cols.device
+    step_ix = torch.arange(l, device=dev)[:, None, None]
+    row_ix = torch.arange(n, device=dev)[None, :, None]
+    flat = ((step_ix * n + row_ix) * nt + mats.cols.to(torch.int64)).reshape(-1)
+    out = torch.zeros(l * n * nt, dtype=torch.float32, device=dev)
+    return out.index_add(0, flat, mats.vals.reshape(-1)).reshape(l, n, nt)
 
 
 def stencil_is_periodic(mats: StencilStepMatrices) -> bool:

@@ -1,5 +1,6 @@
-"""GP inference on GRF graph kernels: iterative CG + SLQ marginal likelihood
-and pathwise-conditioning prediction."""
+"""GP inference on GRF graph kernels: exact (Cholesky) for small N, and
+iterative CG + SLQ marginal likelihood with pathwise-conditioning prediction
+for large N."""
 
-from . import iterative, params
+from . import exact, iterative, params
 from .iterative import CGSettings, pathwise_predict, summarize_samples

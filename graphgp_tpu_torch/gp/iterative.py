@@ -6,8 +6,9 @@ is composed from full-graph Φ products of a contracted operator
 
     K_tt v = (Φ (Φᵀ expand(v)))[train]
 
-and every Φ product of a stencil layout is kernel K1. Everything runs
-batch-major, (B, N) rows.
+and every Φ product of a stencil layout is kernel K1. The full-space
+prediction solve runs the fused masked-Gram CG, kernel K2
+(``cuda_kernels/gram.py``). Everything runs batch-major, (B, N) rows.
 
 Functions that draw noise take the draws as optional tensors (``probes``,
 ``eps1``/``eps2``, ``init``), so a test can hand this package and the JAX
@@ -20,6 +21,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..cuda_kernels import gram
 from ..features import contract
 from ..linalg import batched_cg, cg_solve, rademacher_probes, slq_logdet
 from . import params as P
@@ -97,6 +99,25 @@ def make_gram_matvec_bm_full():
         return kv + noise_var * vm + (v - vm)
 
     return matvec
+
+
+def _fused_gram_solve_bm(phi, noise_var, node_mask, b_solve, settings) -> torch.Tensor:
+    """The full-space masked Gram solve through the fused CG
+    (``cuda_kernels/gram.gram_cg``, kernel K2 on the card).
+
+    No gradient: prediction solves only; training solves keep ``cg_solve``'s
+    adjoint path. Batches above the 16-row launch cap are solved as
+    independent chunks (the systems are independent, so no zero rows are
+    needed to fill the last chunk).
+    """
+    outs = [
+        gram.gram_cg(
+            phi, noise_var, node_mask, b_solve[i : i + gram.MAX_BATCH],
+            tol=settings.cg_tol, max_iters=settings.cg_max_iters, periodic=True,
+        ).x
+        for i in range(0, b_solve.shape[0], gram.MAX_BATCH)
+    ]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _node_mask(train_idx, live, n):
@@ -192,12 +213,13 @@ def pathwise_predict(
     ``eps1`` (num_samples, N) and ``eps2`` (num_samples, n_train) are the
     standard-normal draws (ε₂ is scaled by the noise std here); by default
     they come from ``generator``.
+
+    ``full_space=True``: the residual solve runs in the full node space
+    through the fused masked-Gram CG (kernel K2): no gather or scatter per
+    iteration, the fast path when the train set is a sizable fraction of the
+    graph. Requires distinct live train node ids (masked slots may repeat
+    node 0 with value 0).
     """
-    if full_space:
-        raise NotImplementedError(
-            "pathwise_predict(full_space=True) runs the fused masked-Gram CG, "
-            "kernel K2, which is not ported yet (next slice)"
-        )
     dev = y.device
     f = P.modulator(kind, params, feats.max_walk_length)
     phi = contract(feats, f)
@@ -212,15 +234,24 @@ def pathwise_predict(
     f_train_prior = prior_all[:, train_idx]
     f_test_prior = prior_all[:, test_idx]
     b = y[None, :] - (f_train_prior + torch.sqrt(noise_var) * eps2)
-    if mask is None:
-        matvec = make_gram_matvec_bm()
-        carry = (phi, noise_var, train_idx)
-    else:
+    if mask is not None:
+        # padded residuals are zeroed, so their solution components stay 0
         b = b * mask[None, :]
-        matvec = make_gram_matvec_bm_masked()
-        carry = (phi, noise_var, train_idx, mask)
-    v = batched_cg(matvec, carry, b, tol=settings.cg_tol, max_iters=settings.cg_max_iters).x
-    correction = phi.matvec_bm(phi.rmatvec_bm(_expand_add(v, train_idx, n)))[:, test_idx]
+    if full_space:
+        live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
+        v_full = _fused_gram_solve_bm(
+            phi, noise_var, _node_mask(train_idx, live, n), _expand_add(b, train_idx, n), settings
+        )
+    else:
+        if mask is None:
+            matvec = make_gram_matvec_bm()
+            carry = (phi, noise_var, train_idx)
+        else:
+            matvec = make_gram_matvec_bm_masked()
+            carry = (phi, noise_var, train_idx, mask)
+        v = batched_cg(matvec, carry, b, tol=settings.cg_tol, max_iters=settings.cg_max_iters).x
+        v_full = _expand_add(v, train_idx, n)
+    correction = phi.matvec_bm(phi.rmatvec_bm(v_full))[:, test_idx]
     return f_test_prior + correction
 
 

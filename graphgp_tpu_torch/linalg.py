@@ -264,3 +264,23 @@ def rademacher_probes(
     """(num_probes, n) rows of ±1."""
     bits = torch.randint(0, 2, (num_probes, n), generator=generator, device=device)
     return bits.to(torch.float32) * 2.0 - 1.0
+
+
+# ---------------------------------------------------------------------------
+# Small-N dense helpers.
+# ---------------------------------------------------------------------------
+
+
+def cholesky_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = b`` given the lower Cholesky factor of A; b (n,) or (n, k)."""
+    rhs = b[:, None] if b.dim() == 1 else b
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    x = torch.linalg.solve_triangular(chol.T, y, upper=True)
+    return x[:, 0] if b.dim() == 1 else x
+
+
+def safe_cholesky(a: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
+    """Lower Cholesky factor of ``a + jitter·I``; raises if that is not
+    positive definite."""
+    n = a.shape[0]
+    return torch.linalg.cholesky(a + jitter * torch.eye(n, dtype=a.dtype, device=a.device))

@@ -1,6 +1,7 @@
 """Vectorized random-walk engine.
 
-Counterpart of ``sample_walk_log`` in ``graphgp_tpu/walker.py``. All
+Counterpart of ``sample_walk_log``, ``dense_step_matrices`` and
+``sample_dense_step_matrices`` in ``graphgp_tpu/walker.py``. All
 ``num_start_nodes × walks_per_node`` walks advance in lockstep, one step at a
 time; a halted walk keeps its lane with load 0. Randomness is the splitmix32
 counter hash of ``(key, step, global node, walk)``, so the walks do not depend
@@ -157,3 +158,27 @@ def sample_walk_log(
         cur = torch.where(alive, nxt, cur)
         load = torch.where(alive, new_load, load)
     return WalkLog(curs, loads)
+
+
+def dense_step_matrices(
+    log: WalkLog, cfg: WalkConfig, num_target_nodes: Optional[int] = None
+) -> torch.Tensor:
+    """Consolidate a WalkLog into dense step matrices ``M`` of shape (L, N, Nt):
+    ``M[l]`` is the Monte-Carlo estimate of the l-th power of the walk matrix.
+    One flat scatter-add over all (step, start, cur) triples."""
+    l, n, w = log.curs.shape
+    nt = num_target_nodes or n
+    dev = log.curs.device
+    step_ix = torch.arange(l, device=dev)[:, None, None]
+    start = torch.arange(n, device=dev)[None, :, None]
+    flat = ((step_ix * n + start) * nt + log.curs.to(torch.int64)).reshape(-1)
+    vals = (log.loads / cfg.walks_per_node).reshape(-1)
+    out = torch.zeros(l * n * nt, dtype=torch.float32, device=dev)
+    return out.index_add(0, flat, vals).reshape(l, n, nt)
+
+
+def sample_dense_step_matrices(graph: PackedGraph, seed: int, cfg: WalkConfig) -> torch.Tensor:
+    """Walk and consolidate: (L, N, N) dense step matrices, the step axis
+    first. The small-N sampler (the walk log is L·N·W entries and the result
+    L·N² floats)."""
+    return dense_step_matrices(sample_walk_log(graph, seed, cfg), cfg)

@@ -1,18 +1,21 @@
-"""The CUDA kernels K1 (stencil product) and K3 (ELL → stencil) against their
-plain PyTorch versions, on the card. Marked ``gpu``; each test skips, inside
+"""The CUDA kernels K1 (stencil product), K2 (the two passes of the fused
+masked-Gram CG) and K3 (ELL → stencil) against their plain PyTorch versions,
+on the card. Marked ``gpu``; each test skips, inside
 its fixture, when there is no CUDA card (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m gpu -q tests/test_torch_cuda_kernels.py
 
 Tolerances: K1 sums S float32 terms with fma in another order than the
-plain roll chain (relative 1e-5 of max |ref|); K3 places at most one entry
+plain roll chain (relative 1e-5 of max |ref|), and so do K2a and K2b; K2b's
+fused dot is a float32 sum of N terms in another order (relative 1e-5); K3 places at most one entry
 per output cell, so it is exact.
 """
 import numpy as np
 import pytest
 import torch
 
+from graphgp_tpu_torch.cuda_kernels import gram as k2
 from graphgp_tpu_torch.cuda_kernels import stencil as k1
 from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
 
@@ -102,6 +105,64 @@ def test_k3_kernel_equals_plain(cuda, l, n, r, s):
     assert torch.equal(out, ref)
 
 
+def _gram_inputs(n, b, s, seed, device):
+    w, offs = _random_stencil(n, s, seed=seed, big_offsets=True)
+    offs_c = tuple(k1.center_offsets(offs, n).tolist())
+    w = torch.from_numpy(w).to(device)
+    w_shift = k1.shifted_weights(w, offs_c).contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = (torch.rand(n, generator=gen, device=device) < 0.5).to(torch.float32)
+    v = torch.randn((b, n), generator=gen, device=device)
+    return w, w_shift, offs_c, tuple(-o for o in offs_c), mask, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("n", [225, 1000, 4099])
+def test_k2_kernels_match_plain(cuda, n, b):
+    """N = 225 and 4099 leave a tail in the last block: its threads must add
+    zero to the fused dot."""
+    w, w_shift, offs, neg, mask, v = _gram_inputs(n, b, 9, seed=n + b, device=cuda)
+    nv = torch.tensor([0.3], device=cuda)
+    before = (k2.rmv_mask_launches, k2.mv_epilogue_launches)
+    t = k2.rmv_mask_cuda(w_shift, mask, v, neg)
+    out, dot = k2.mv_epilogue_cuda(w, t, mask, v, nv, offs)
+    out2, dot2 = k2.mv_epilogue_cuda(w, k2.rmv_mask_cuda(w_shift, mask, v, neg), mask, v, nv, offs)
+    torch.cuda.synchronize()
+    assert (k2.rmv_mask_launches - before[0], k2.mv_epilogue_launches - before[1]) == (2, 2)
+    t_ref = k2.rmv_mask_plain(w_shift, mask, v, neg)
+    out_ref, dot_ref = k2.mv_epilogue_plain(w, t_ref, mask, v, nv, offs)
+    for got, ref in ((t, t_ref), (out, out_ref)):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float(((dot - dot_ref).abs() / dot_ref.abs()).max()) <= 1e-5
+    # no float atomics: a second launch gives the same bits
+    assert torch.equal(out, out2) and torch.equal(dot, dot2)
+    off_mask = mask == 0
+    assert torch.equal(out[:, off_mask], v[:, off_mask])
+
+
+@pytest.mark.gpu
+def test_gram_cg_kernel_matches_plain_and_repeats(cuda):
+    n = 4099
+    w, w_shift, offs, _, mask, v = _gram_inputs(n, 8, 7, seed=3, device=cuda)
+    w = 0.3 * w  # keep the Gram operator's condition number modest
+
+    class Phi:
+        pass
+
+    phi = Phi()
+    phi.w, phi.w_shift, phi.offsets = w, k1.shifted_weights(w, offs), np.asarray(offs)
+    b = v * mask[None, :]
+    got = k2.gram_cg(phi, torch.tensor(0.5, device=cuda), mask, b, tol=0.0, max_iters=10)
+    again = k2.gram_cg(phi, 0.5, mask, b, tol=0.0, max_iters=10)
+    ref = k2.gram_cg_plain(phi, 0.5, mask, b, tol=0.0, max_iters=10)
+    assert got.iterations == again.iterations == ref.iterations == 10
+    assert torch.equal(got.x, again.x)
+    # ten iterations amplify the products' 1e-7 differences a little
+    assert float((got.x - ref.x).abs().max() / ref.x.abs().max()) <= 1e-4
+    assert bool((got.x[:, mask == 0] == 0).all())
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_bad_inputs(cuda):
     w = torch.randn(3, 100, device=cuda)
@@ -113,6 +174,16 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         k1.stencil_matvec_cuda(w, torch.randn(2, 100), (0, 1, -1))
     with pytest.raises(ValueError):
         k1.stencil_matvec_cuda(w.double(), torch.randn(2, 100, device=cuda).double(), (0, 1, -1))
+    mask = torch.ones(100, device=cuda)
+    v = torch.randn(2, 100, device=cuda)
+    with pytest.raises(ValueError):
+        k2.rmv_mask_cuda(w, mask[:50], v, (0, 1, -1))
+    with pytest.raises(ValueError):
+        k2.rmv_mask_cuda(w, mask, torch.randn(17, 100, device=cuda), (0, 1, -1))
+    with pytest.raises(ValueError):
+        k2.mv_epilogue_cuda(w, v, mask, v[:1], torch.tensor([0.1], device=cuda), (0, 1, -1))
+    with pytest.raises(ValueError):
+        k2.mv_epilogue_cuda(w, v, mask, v, torch.tensor([0.1]), (0, 1, -1))
     with pytest.raises(ValueError):
         k3.ell_to_stencil_cuda(torch.zeros(1, 5, 2, dtype=torch.int64, device=cuda),
                                torch.zeros(1, 5, 2, device=cuda),

@@ -211,14 +211,6 @@ def test_pathwise_predict_matches_jax_given_same_draws(stencil_pair):
     assert summary.mean.shape == (test_idx.size,) and bool((summary.var > 0).all())
 
 
-def test_pathwise_full_space_raises_naming_k2(stencil_pair):
-    _, tf, y_all = stencil_pair
-    idx = torch.arange(10)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tit.pathwise_predict(tf, params_from_jax(_params()), idx, torch.zeros(10), idx,
-                             full_space=True)
-
-
 def test_full_space_fit_requires_distinct_ids(stencil_pair):
     _, tf, _ = stencil_pair
     idx = torch.tensor([1, 2, 2, 3])
