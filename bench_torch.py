@@ -11,7 +11,10 @@ The port's counterpart of ``bench.py``, at the same four shapes:
     right-hand sides, 20 iterations at tol 0) through the fused masked-Gram CG
     (kernel K2), and beside it through the composition it replaces
     (``batched_cg`` over ``make_gram_matvec_bm_full``, two K1 launches an
-    iteration).
+    iteration);
+  * dense step matrices per second through the fused walk kernel (K4) at a
+    64 x 32 grid (N = 2048), walks_per_node = 1024, L = 10: the dense
+    regime's sampler, which ``bench.py`` does not time.
 
 Every metric is printed as its own JSON line the moment it is measured, each
 with the card's name and power limit; the last line is the headline record
@@ -151,6 +154,25 @@ def bench_cg(sfeats, device) -> dict:
             "num_offsets": s, "bytes_per_iter": bytes_per_iter}
 
 
+def bench_dense_walk(device) -> dict:
+    """(L, N, N) step matrices per second through kernel K4 at N = 2048
+    (a 64 x 32 grid), walks_per_node = 1024, p_halt = 0.1, L = 10."""
+    import scipy.sparse as sp
+
+    from graphgp_tpu_torch import WalkConfig, pack_laplacian
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+
+    rows, cols = 64, 32
+    path = lambda m: sp.diags([1.0, 1.0], [-1, 1], shape=(m, m))
+    adj = (sp.kron(sp.eye(rows), path(cols)) + sp.kron(path(rows), sp.eye(cols))).tocsr()
+    graph = pack_laplacian(adj).to(device)
+    cfg = WalkConfig(walks_per_node=1024, p_halt=0.1, max_walk_length=10)
+    k4.sample_dense_step_matrices_cuda(graph, 0, cfg)  # warm
+    seeds = iter(range(1, 100))
+    dt = best_seconds(lambda: k4.sample_dense_step_matrices_cuda(graph, next(seeds), cfg), reps=5)
+    return {"per_s": 1.0 / dt, "walks_per_s": graph.num_nodes * cfg.walks_per_node / dt}
+
+
 def main() -> int:
     import torch
 
@@ -186,8 +208,13 @@ def main() -> int:
                 round(cg["bytes_per_iter"] * cg["fused"] / 1e9, 1), "GB/s",
                 bytes_per_iter_model=cg["bytes_per_iter"], num_offsets=cg["num_offsets"])
 
+    dense = bench_dense_walk(device)
+    m_dense = emit(card, "dense_step_matrices_per_s_n2048_wpn1024_L10", round(dense["per_s"], 2),
+                   "step-matrix sets/s", path="fused walk kernel (K4), one launch per set",
+                   walks_per_s=round(dense["walks_per_s"], 1))
+
     headline = dict(headline)
-    headline["extra_metrics"] = [m_walk, m_conv, m_cg, m_cg_k1, m_bw]
+    headline["extra_metrics"] = [m_walk, m_conv, m_cg, m_cg_k1, m_bw, m_dense]
     print(json.dumps(headline), flush=True)
     return 0
 

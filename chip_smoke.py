@@ -2,9 +2,10 @@
 """GPU smoke test of the PyTorch/CUDA port (graphgp_tpu_torch).
 
 Drives the port's main paths on one CUDA card, the million-node GRF-Thompson
-BO flagship and the scaling experiment with full-space prediction, and holds
-each hand-written kernel of those paths against its plain PyTorch version on
-the paths' own tensors:
+BO flagship, the scaling experiment with full-space prediction and the
+dense-regime protocols (ablation and traffic regression), and holds each
+hand-written kernel of those paths against its plain PyTorch version on the
+paths' own tensors:
 
   1. prints the card's name and power limit, builds the kernels (one nvcc);
   2. small-input agreement: a 30x30 grid through the card's path and the
@@ -27,13 +28,27 @@ the paths' own tensors:
   7. K1 (stencil product, forward, transpose, autograd), K2a and K2b (the
      fused masked-Gram passes) and K3 (ELL → stencil) against their plain
      versions, and their times (CUDA events) beside the plain version's, a
-     library call's where one exists, and the bound from this run's shapes.
+     library call's where one exists, and the bound from this run's shapes;
+  8. the dense regime: the quickstart kernels, card against CPU and against
+     the exact heat kernel; the ablation protocol through
+     graphgp_tpu_torch.cli.ablation (30x30 mesh, beta 10, amplitude 10, noise
+     0.5, p_halt 0.01, L 10, walks 1/10/100/1000, both load updates) and the
+     traffic protocol through graphgp_tpu_torch.cli.regression (the PEMS
+     sensor graph, N 321, 250 train, p_halt 0.1, L 10, walks 1..1024; then
+     the same script's default grid, N 900), K4's counter zeroed just before each
+     and read just after; then K4 (fused walks -> dense step matrices)
+     against its plain version at those shapes and at the edge of its regime
+     (N 4096, walks_per_node 8192, L 10).
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
 Depth cut against the script's time limit: BO_ITERATIONS iterations of
-TRAIN_EPOCHS Adam epochs (the reference protocol runs 50 x 30). Widths are
-the flagship's: N = 1e6, walks_per_node = 1000, L = 5, batch 100.
+TRAIN_EPOCHS Adam epochs (the reference protocol runs 50 x 30); DENSE_SEEDS
+seed of the ablation and traffic protocols (they run 3), ABLATION_TRAIN_STEPS
+optimizer steps per ablation fit (of 1000), and the default-grid traffic run at
+the walks GRID_WALKS and GRID_TRAIN_STEPS L-BFGS steps (of 200); the traffic
+protocol on the PEMS graph runs its full sweep at its own 200 steps. Widths
+are the protocols' own.
 """
 from __future__ import annotations
 
@@ -67,6 +82,30 @@ REL_TOL_K2 = 1e-5  # K2a/K2b: the same sums; the fused dot: N fp32 terms in anot
 SCALING_SIZES = (256, 1024, 2**20)  # the reference protocol's small sizes and its top size
 CG_BENCH_BATCH = 8
 CG_BENCH_ITERS = 20
+
+DENSE_SEEDS = 1              # the ablation and traffic protocols run 3 seeds
+ABLATION_TRAIN_STEPS = 300   # the ablation protocol takes 1000 optimizer steps per fit
+GRID_WALKS = (1, 1024)       # the default-grid traffic run (the protocol sweeps 1, 4, ..., 1024)
+GRID_TRAIN_STEPS = 50        # ... at 200 L-BFGS steps per fit
+PEMS_NPZ = "processed_data/pems_bay.npz"
+# K4 against its plain version, relative to max |ref|: the walks are
+# bit-identical; each cell is a float32 sum of up to W loads. The kernel sums
+# (shared-memory atomics, in no fixed order) and divides by W once; the plain
+# version adds W copies of fl(load / W) one after another, which leaves it up
+# to W * 2^-24 of the largest cell from the true sum in the worst case (6e-5
+# at W = 1000; 9.3e-6 was read at the ablation protocol's ad-hoc shape).
+REL_TOL_K4 = 3e-5
+# the transplant arm on the PEMS graph is Monte-Carlo-noise-limited (mean
+# degree 12: the per-step importance factors are large); the JAX package's
+# recorded runs on this graph read 11-19 times the pofm_diffusion RMSE at
+# walks_per_node 1024
+TRANSPLANT_MARGIN = 50.0
+# operations per walk step, counted from csrc/walker.cu: a transition that is
+# tried (degree load, one hashed uniform, the halt test), one that is taken
+# (the second uniform, the pick, two table loads, three multiplies, the
+# shared-memory add of the next record)
+K4_OPS_TRIED = 15
+K4_OPS_TAKEN = 27
 
 
 def log(msg: str) -> None:
@@ -759,6 +798,279 @@ def kernel_checks(device, flag: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the dense regime (kernels.py, the ablation and traffic protocols, K4)
+# ---------------------------------------------------------------------------
+
+
+def dense_small_agreement(device) -> None:
+    """The quickstart kernel on the 4-node cycle and the diffusion estimate at
+    20000 walks per node: the card's path (K4) against the plain CPU path, and
+    the estimate against the exact heat kernel."""
+    import numpy as np
+
+    import graphgp_tpu_torch as gg
+
+    cycle = np.zeros((4, 4))
+    for u, v in [(0, 1), (1, 2), (2, 3), (3, 0)]:
+        cycle[u, v] = cycle[v, u] = 1.0
+    k = {d: gg.fast_general_grf_kernel(cycle, modulator_vector=[1.0, 0.5, 0.25],
+                                       walks_per_node=50, p_halt=0.1, device=d).cpu()
+         for d in ("cpu", device)}
+    err, rel = rel_err(k[device], k["cpu"])
+    log(f"dense small-input agreement fast_general_grf_kernel (4-cycle, wpn 50): "
+        f"max abs err {err:.3e} (rel {rel:.3e})")
+    check(rel <= 1e-5, f"quickstart kernel, card against CPU: rel {rel}")
+    check(float((k[device] - k[device].T).abs().max()) <= 1e-6, "quickstart kernel not symmetric")
+
+    ring = np.zeros((64, 64))
+    for i in range(64):
+        ring[i, (i + 1) % 64] = ring[(i + 1) % 64, i] = 1.0
+    est = {d: gg.fast_diffusion_grf_kernel(ring, beta=1.0, walks_per_node=20000, device=d).cpu()
+           for d in ("cpu", device)}
+    err, rel = rel_err(est[device], est["cpu"])
+    exact_err = float((est[device] - gg.diffusion_kernel(ring, beta=1.0, device=device).cpu())
+                      .abs().max())
+    log(f"dense small-input agreement fast_diffusion_grf_kernel (64-ring, wpn 20000): card "
+        f"against CPU max abs err {err:.3e} (rel {rel:.3e}); against diffusion_kernel {exact_err:.4f}")
+    # the plain path adds 20000 loads per cell, each divided by W first, one
+    # after the other in float32 (its step 0 reads 1.0001, and its K is 1.6e-4
+    # from a float64 sum of the same walks); the kernel divides the sum
+    check(rel <= 1e-3, f"diffusion estimate, card against CPU: rel {rel}")
+    check(exact_err <= 0.05, f"diffusion estimate is {exact_err} from the exact heat kernel")
+
+
+def _timed_dense_calls():
+    """Wrap kernels.features_for_adjacency and gp.exact.fit, which the dense
+    CLIs reach through their modules, to add up the seconds spent in each
+    (each call ended by a device synchronize). Returns (totals, restore)."""
+    import torch
+
+    from graphgp_tpu_torch import kernels
+    from graphgp_tpu_torch.gp import exact, spectral
+
+    totals = {"features": 0.0, "exact_fit": 0.0, "spectral_fit": 0.0}
+    originals = (kernels.features_for_adjacency, exact.fit, spectral.fit)
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            totals[name] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    kernels.features_for_adjacency = timed("features", originals[0])
+    exact.fit = timed("exact_fit", originals[1])
+    spectral.fit = timed("spectral_fit", originals[2])
+
+    def restore():
+        kernels.features_for_adjacency, exact.fit, spectral.fit = originals
+
+    return totals, restore
+
+
+def _run_dense_cli(name: str, main_fn, argv: list, device) -> tuple:
+    """One dense-regime CLI through its ``main``, its CSVs written to a
+    temporary directory: (records, K4 launches, seconds)."""
+    import tempfile
+
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+
+    totals, restore = _timed_dense_calls()
+    k4.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as results_dir:
+            records = main_fn([*argv, "--device", device, "--results-dir", results_dir])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = k4.launches
+    log(f"{name}: {total_s:.2f} s in all; step matrices (K4) {totals['features']:.3f} s over "
+        f"{launches} launches, L-BFGS fits {totals['exact_fit']:.2f} s, spectral Adam fits "
+        f"{totals['spectral_fit']:.2f} s")
+    check(launches > 0, f"K4 was not launched by {name}")
+    return records, launches, total_s
+
+
+def ablation_protocol(device) -> int:
+    import numpy as np
+
+    from graphgp_tpu_torch.cli import ablation
+
+    log(f"ablation protocol: reference settings (30x30 mesh, beta 10, amplitude 10, noise 0.5, "
+        f"p_halt 0.01, L 10, walks 1/10/100/1000); depth cut: {DENSE_SEEDS} seed (the protocol "
+        f"runs 3), {ABLATION_TRAIN_STEPS} Adam / L-BFGS steps per fit (it takes 1000)")
+    records, launches, _ = _run_dense_cli(
+        "ablation", ablation.main,
+        ["--seeds", str(DENSE_SEEDS), "--train-steps", str(ABLATION_TRAIN_STEPS)], device)
+    walks = ablation.build_parser().parse_args([]).walks
+    check(launches == DENSE_SEEDS * len(walks) * 2, f"ablation: {launches} K4 launches")
+    check(sum(r["mode"] == "exact_diffusion" for r in records) == DENSE_SEEDS,
+          "ablation: the exact-diffusion row is missing")
+    for r in records:
+        check(np.isfinite(r["rmse"]) and np.isfinite(r["nlpd"]),
+              f"ablation: {r['mode']} wpn {r['walks_per_node']} not finite")
+    fro = {m: [float(np.mean([r["kernel_fro_rel"] for r in records
+                              if r["mode"] == m and r["walks_per_node"] == w])) for w in walks]
+           for m in ("principled", "ablation")}
+    log(f"ablation kernel_fro_rel over walks {walks}: principled "
+        f"{[round(x, 4) for x in fro['principled']]}, ad-hoc {[round(x, 4) for x in fro['ablation']]}")
+    check(all(a > b for a, b in zip(fro["principled"], fro["principled"][1:])),
+          "ablation: the principled estimator's kernel error does not fall with walks_per_node")
+    check(fro["principled"][-1] < fro["ablation"][-1],
+          "ablation: the principled kernel error is not below the ad-hoc one's at the top wpn")
+    return launches
+
+
+def traffic_protocol(device) -> int:
+    import numpy as np
+
+    from graphgp_tpu_torch.cli import regression
+
+    defaults = regression.build_parser().parse_args([])
+    log(f"traffic protocol: PEMS sensor graph, {defaults.num_train} train, p_halt {defaults.p_halt}, "
+        f"L {defaults.max_walk_length}, walks {defaults.walks}, {defaults.train_steps} L-BFGS steps, "
+        f"two restarts per fit; depth cut: {DENSE_SEEDS} seed (the protocol runs 3)")
+    records, launches, _ = _run_dense_cli(
+        "traffic_pems", regression.main, ["--pems-npz", PEMS_NPZ, "--seeds", str(DENSE_SEEDS)], device)
+    check(launches == DENSE_SEEDS * len(defaults.walks), f"traffic: {launches} K4 launches")
+    top = max(defaults.walks)
+
+    def rmse(kernel, wpn):
+        return float(np.mean([r["rmse"] for r in records
+                              if r["kernel"] == kernel and r["walks_per_node"] == wpn]))
+
+    for r in records:
+        check(np.isfinite(r["rmse"]) and np.isfinite(r["nlpd"]),
+              f"traffic: {r['kernel']} wpn {r['walks_per_node']} not finite")
+    floor, transplant = rmse("pofm_diffusion", 0), rmse("grf_diffusion_transplant", top)
+    log(f"traffic (PEMS) rmse: exact_diffusion {rmse('exact_diffusion', 0):.4f}, pofm_diffusion "
+        f"{floor:.4f}; transplant arm wpn 1 {rmse('grf_diffusion_transplant', 1):.4f} -> wpn {top} "
+        f"{transplant:.4f} ({transplant / floor:.1f}x the pofm_diffusion rmse; margin "
+        f"{TRANSPLANT_MARGIN:.0f}x); refit arms at wpn {top}: grf_diffusion "
+        f"{rmse('grf_diffusion', top):.4f}, grf_free {rmse('grf_free', top):.4f}")
+    check(transplant <= TRANSPLANT_MARGIN * floor,
+          f"traffic: transplant rmse {transplant} is over {TRANSPLANT_MARGIN}x the floor {floor}")
+    check(transplant < rmse("grf_diffusion_transplant", 1),
+          "traffic: the transplant arm does not improve from wpn 1 to the top wpn")
+
+    log(f"traffic protocol, the script's default grid (N {defaults.n_nodes}): depth cut: "
+        f"{DENSE_SEEDS} seed, walks {list(GRID_WALKS)} (the protocol sweeps {defaults.walks}), "
+        f"{GRID_TRAIN_STEPS} L-BFGS steps per fit (it takes {defaults.train_steps})")
+    grid_records, grid_launches, _ = _run_dense_cli(
+        "traffic_grid", regression.main,
+        ["--seeds", str(DENSE_SEEDS), "--walks", *map(str, GRID_WALKS),
+         "--train-steps", str(GRID_TRAIN_STEPS)], device)
+    check(grid_launches == DENSE_SEEDS * len(GRID_WALKS), f"traffic grid: {grid_launches} K4 launches")
+    for r in grid_records:
+        check(np.isfinite(r["rmse"]) and np.isfinite(r["nlpd"]),
+              f"traffic grid: {r['kernel']} wpn {r['walks_per_node']} not finite")
+    by = {(r["kernel"], r["walks_per_node"]): r["rmse"] for r in grid_records}
+    log(f"traffic (grid 900) rmse: exact_diffusion {by[('exact_diffusion', 0)]:.4f}, pofm_diffusion "
+        f"{by[('pofm_diffusion', 0)]:.4f}; transplant arm "
+        f"{[round(by[('grf_diffusion_transplant', w)], 4) for w in GRID_WALKS]}, grf_free "
+        f"{[round(by[('grf_free', w)], 4) for w in GRID_WALKS]} over walks {list(GRID_WALKS)}")
+    check(by[("grf_diffusion_transplant", GRID_WALKS[-1])] < by[("grf_diffusion_transplant", 1)],
+          "traffic grid: the transplant arm does not improve with walks_per_node")
+    return launches + grid_launches
+
+
+def _k4_live_steps(graph, seed, cfg) -> tuple:
+    """(transitions tried, transitions taken) by this run's walks, counted
+    from the plain walker's log over blocks of start nodes: a walk tries a
+    transition at every step it is alive at, bar the last, and takes the ones
+    it survives."""
+    from graphgp_tpu_torch.pipeline import DEFAULT_LOG_BUDGET_BYTES, auto_block_size
+    from graphgp_tpu_torch.walker import sample_walk_log
+
+    n = graph.num_nodes
+    block = auto_block_size(n, cfg, DEFAULT_LOG_BUDGET_BYTES)
+    alive = None
+    for start in range(0, n, block):
+        lg = sample_walk_log(graph, seed, cfg, node_offset=start,
+                             num_start_nodes=min(block, n - start))
+        counts = (lg.loads != 0).sum(dim=(1, 2))
+        alive = counts if alive is None else alive + counts
+    alive = alive.tolist()
+    return sum(alive[:-1]), sum(alive[1:])
+
+
+def k4_check(label: str, graph, seed: int, cfg, reps: int, plain_reps: int) -> dict:
+    """K4 on one graph: against its plain version, step 0 exactly the
+    identity, a second launch beside the first, and its time beside the plain
+    version's and the bound from this run's walks."""
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+
+    n, d = graph.neighbors.shape
+    w, steps = cfg.walks_per_node, cfg.max_walk_length
+    out = k4.sample_dense_step_matrices_cuda(graph, seed, cfg)
+    again = k4.sample_dense_step_matrices_cuda(graph, seed, cfg)
+    torch.cuda.synchronize()
+    ref = k4.sample_dense_step_matrices_plain(graph, seed, cfg)
+    err, rel = rel_err(out, ref)
+    check(out.shape == (steps, n, n), f"K4 {label}: shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"K4 {label}: not finite")
+    check(rel <= REL_TOL_K4, f"K4 {label}: rel err {rel}")
+    check(torch.equal(out[0], torch.eye(n, device=out.device)), f"K4 {label}: M[0] is not I")
+    rep_err, rep_rel = rel_err(again, out)
+    check(rep_rel <= REL_TOL_K4, f"K4 {label}: a second launch differs by rel {rep_rel}")
+    repeat = ("bit-identical" if rep_err == 0.0 else
+              f"max abs diff {rep_err:.3e} (rel {rep_rel:.3e}): float atomics, summation order")
+    del again, ref
+    ms = cuda_ms(lambda: k4.sample_dense_step_matrices_cuda(graph, seed, cfg), reps=reps, warmup=1)
+    plain = cuda_ms(lambda: k4.sample_dense_step_matrices_plain(graph, seed, cfg),
+                    reps=plain_reps, warmup=1)
+    tried, taken = _k4_live_steps(graph, seed, cfg)
+    nbytes = 4.0 * (2 * n * d + n) + 4.0 * steps * n * n
+    ops = K4_OPS_TRIED * tried + K4_OPS_TAKEN * taken + 2.0 * steps * n * n
+    bnd, by = bound_ms(nbytes, ops)
+    log(f"K4 walk_step_matrices {label} N={n} D={d} W={w} L={steps} p_halt={cfg.p_halt} "
+        f"ablation={cfg.ablation} ({k4.block_threads(w, k4.steps_per_pass(n, steps) * n)} threads a block, "
+        f"{-(-steps // k4.steps_per_pass(n, steps))} pass): {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {tried} transitions tried, {taken} taken, "
+        f"{ops:.3e} operations), {n * w * 1e3 / ms:,.0f} walks/s; max abs err {err:.3e} "
+        f"(rel {rel:.3e}); M[0] == I exactly; second launch {repeat}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by}
+
+
+def k4_checks(device, launches: int) -> dict:
+    """K4 at the dense paths' own shapes and at the edge of its regime. The
+    row of the kernels line is the ablation protocol's principled cell."""
+    from graphgp_tpu_torch.data import database, synthetic
+    from graphgp_tpu_torch.graphs import pack_dense, pack_laplacian
+    from graphgp_tpu_torch.walker import WalkConfig
+
+    mesh = synthetic._grid_adjacency(30)
+    row = k4_check("ablation protocol, principled", pack_laplacian(mesh.toarray()).to(device), 142,
+                   WalkConfig(1000, 0.01, 10, ablation=False), reps=20, plain_reps=3)
+    k4_check("ablation protocol, ad-hoc load on the raw adjacency",
+             pack_dense(mesh.toarray()).to(device), 142,
+             WalkConfig(1000, 0.01, 10, ablation=True), reps=20, plain_reps=3)
+    pems, _, _ = database._load_csr_npz(PEMS_NPZ)
+    k4_check("traffic protocol, PEMS graph", pack_laplacian(pems).to(device), 42,
+             WalkConfig(1024, 0.1, 10), reps=20, plain_reps=3)
+    k4_check("traffic protocol, PEMS graph, one walk", pack_laplacian(pems).to(device), 42,
+             WalkConfig(1, 0.1, 10), reps=20, plain_reps=3)
+    big = synthetic.generate("grid", 4096, seed=0)["adjacency"]
+    k4_check("edge of the regime, 64x64 grid", pack_laplacian(big).to(device), 7,
+             WalkConfig(8192, 0.1, 10), reps=3, plain_reps=1)
+    k4_check("two shared-memory passes, 64x64 grid", pack_laplacian(big).to(device), 7,
+             WalkConfig(256, 0.1, 16), reps=3, plain_reps=1)
+    return {"name": "walk_step_matrices", "route": "cuda",
+            "source": "graphgp_tpu_torch/csrc/walker.cu",
+            "replaces": "graphgp_tpu/pallas_kernels/walker.py:280",
+            "launches": launches, **row, "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -805,8 +1117,23 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_row, k3_row = kernel_checks(device, flag)
     k2a_row, k2b_row = k2_checks(device, flag, scal)
-    rows = [k1_row, k3_row, k2a_row, k2b_row]
     log(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s")
+    del flag, scal  # the flagship's and the scaling path's tensors
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dense_small_agreement(device)
+    log(f"dense small-input agreement: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k4_launches = ablation_protocol(device)
+    log(f"ablation protocol: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k4_launches += traffic_protocol(device)
+    log(f"traffic protocol: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k4_row = k4_checks(device, k4_launches)
+    log(f"K4 checks and timings: {time.perf_counter() - t0:.2f} s")
+    rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row]
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

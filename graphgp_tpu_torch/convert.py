@@ -12,13 +12,15 @@ import numpy as np
 import torch
 
 from .features import DenseFeatures, EllStepMatrices, StencilStepMatrices
+from .gp.spectral import Eigenbasis
 
 PARAM_NAMES = ("raw_noise", "modulator", "raw_beta", "raw_sigma_f")
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
-    """A JAX hyperparameter dict (``raw_noise`` with ``modulator`` or
-    ``raw_beta`` / ``raw_sigma_f``) as float32 tensors."""
+    """A JAX hyperparameter dict (``raw_noise`` with ``modulator``, or with
+    ``raw_beta`` / ``raw_sigma_f`` for the diffusion, exact-diffusion and
+    spectral models) as float32 tensors."""
     unknown = set(params) - set(PARAM_NAMES)
     if unknown:
         raise ValueError(f"unknown parameter names {sorted(unknown)}; expected {PARAM_NAMES}")
@@ -61,3 +63,18 @@ def dense_from_numpy(step_matrices: np.ndarray, device="cpu") -> DenseFeatures:
     if step_matrices.ndim != 3:
         raise ValueError(f"step_matrices {step_matrices.shape} must be (L, N, Nt)")
     return DenseFeatures(torch.from_numpy(step_matrices.astype(np.float32)).to(device))
+
+
+def eigenbasis_from_numpy(evals: np.ndarray, evecs: np.ndarray, device="cpu") -> Eigenbasis:
+    """An eigenbasis from the JAX package's (N,) eigenvalues and (N, N)
+    eigenvector columns. Eigenvectors are free in sign (and in basis within a
+    repeated eigenvalue), so two ``eigh`` calls need not agree: carry one
+    decomposition across to compute the same thing in both packages."""
+    evals = np.asarray(evals)
+    evecs = np.asarray(evecs)
+    if evals.ndim != 1 or evecs.shape != (evals.shape[0], evals.shape[0]):
+        raise ValueError(f"evals {evals.shape} and evecs {evecs.shape} do not match")
+    return Eigenbasis(
+        evals=torch.from_numpy(evals.astype(np.float32)).to(device),
+        evecs=torch.from_numpy(evecs.astype(np.float32)).to(device),
+    )

@@ -54,6 +54,7 @@ def library_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    u32, f32 = ctypes.c_uint32, ctypes.c_float
     lib.stencil_matvec_f32.argtypes = [p, p, p, p, i, i, ll, p]
     lib.stencil_matvec_f32.restype = i
     lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, p]
@@ -64,6 +65,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gram_mv_epilogue_f32.restype = i
     lib.gram_num_blocks.argtypes = [ll]
     lib.gram_num_blocks.restype = i
+    lib.walk_step_matrices_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, u32, u32, f32, f32, i, p]
+    lib.walk_step_matrices_f32.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

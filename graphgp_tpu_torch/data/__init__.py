@@ -1,3 +1,4 @@
-"""Synthetic graph + field generators (numpy and scipy)."""
+"""Synthetic graph + field generators and the loader of shipped dataset
+files (numpy and scipy)."""
 
 from .synthetic import GENERATORS, generate

@@ -31,15 +31,21 @@ def normalized_laplacian_csr(adj_csr) -> sp.csr_matrix:
     return lap.tocsr()
 
 
-def _normalized_laplacian_dense(adj: np.ndarray) -> np.ndarray:
-    """Dense ``I - D^{-1/2} A D^{-1/2}`` in float32, as the JAX package
-    computes it (rsqrt of the f32 degree, then two f32 scalings)."""
-    adj = np.asarray(adj, dtype=np.float32)
-    t = torch.from_numpy(adj)
-    deg = t.sum(dim=1)
+def normalized_laplacian(adj) -> torch.Tensor:
+    """Dense symmetric-normalized Laplacian ``I - D^{-1/2} A D^{-1/2}`` in
+    float32, on the device of ``adj`` (array-likes land on the CPU), computed
+    as the JAX package computes it: rsqrt of the float32 degree, then two
+    float32 scalings. A zero-degree row gets a zero inverse-sqrt degree, which
+    leaves an isolated unit self-loop. Entries may differ from the JAX
+    package's by up to two ulps of the off-diagonal weight: XLA's CPU float32
+    rsqrt is not correctly rounded, torch's is."""
+    if not isinstance(adj, torch.Tensor):
+        adj = torch.from_numpy(np.asarray(adj, dtype=np.float32))
+    adj = adj.to(torch.float32)
+    deg = adj.sum(dim=1)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.where(deg > 0, deg, 1.0)), 0.0)
-    norm = t * inv_sqrt[:, None] * inv_sqrt[None, :]
-    return (torch.eye(t.shape[0], dtype=t.dtype) - norm).numpy()
+    norm = adj * inv_sqrt[:, None] * inv_sqrt[None, :]
+    return torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device) - norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +142,6 @@ def pack_laplacian(adj, pad_degree_to: int = 1, layout: str = "auto") -> PackedG
         )
     if sp.issparse(adj):
         return pack_csr(lap, pad_degree_to=pad_degree_to)
-    lap = _normalized_laplacian_dense(np.asarray(adj))
+    lap = normalized_laplacian(np.asarray(adj)).numpy()
     lap[np.abs(lap) < 1e-12] = 0.0
     return pack_dense(lap, pad_degree_to=pad_degree_to)

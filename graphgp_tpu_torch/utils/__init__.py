@@ -1,4 +1,4 @@
 """Results I/O and profiling utilities."""
 
-from .io import print_summary, save_results, summarize_results
+from .io import compute_fro, print_summary, save_results, summarize_results
 from .profiling import PhaseTimer, device_memory_stats, memory_mb, walks_per_second

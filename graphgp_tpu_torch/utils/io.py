@@ -1,7 +1,7 @@
 """Results I/O: CSV results with a timestamped copy, a config snapshot, and a
 grouped mean/std summary.
 
-Counterpart of ``save_results`` / ``print_summary`` in
+Counterpart of ``save_results`` / ``print_summary`` / ``compute_fro`` in
 ``graphgp_tpu/utils/io.py``, on the standard library's csv module (the GPU
 machine has no pandas).
 """
@@ -62,3 +62,10 @@ def print_summary(records: List[Dict], group_keys: Sequence[str], value_keys: Se
     for row in rows:
         print("  ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
     return rows
+
+
+def compute_fro(k_est: np.ndarray, k_ref: np.ndarray) -> float:
+    """Relative Frobenius distance between kernel matrices."""
+    k_est = np.asarray(k_est)
+    k_ref = np.asarray(k_ref)
+    return float(np.linalg.norm(k_est - k_ref) / np.linalg.norm(k_ref))

@@ -1,7 +1,7 @@
 """Vectorized random-walk engine.
 
-Counterpart of ``sample_walk_log``, ``dense_step_matrices`` and
-``sample_dense_step_matrices`` in ``graphgp_tpu/walker.py``. All
+Counterpart of ``sample_walk_log``, ``dense_step_matrices``,
+``sample_dense_step_matrices`` and ``fused_phi`` in ``graphgp_tpu/walker.py``. All
 ``num_start_nodes × walks_per_node`` walks advance in lockstep, one step at a
 time; a halted walk keeps its lane with load 0. Randomness is the splitmix32
 counter hash of ``(key, step, global node, walk)``, so the walks do not depend
@@ -182,3 +182,18 @@ def sample_dense_step_matrices(graph: PackedGraph, seed: int, cfg: WalkConfig) -
     first. The small-N sampler (the walk log is L·N·W entries and the result
     L·N² floats)."""
     return dense_step_matrices(sample_walk_log(graph, seed, cfg), cfg)
+
+
+def fused_phi(graph: PackedGraph, seed: int, modulator, cfg: WalkConfig) -> torch.Tensor:
+    """Sample walks and accumulate ``Φ = Σ_l f_l · M_l`` (N, N) directly,
+    skipping the (L, N, N) intermediate: for a fixed modulator. To learn
+    hyperparameters prefer the step matrices, which make Φ(f) a contraction."""
+    log = sample_walk_log(graph, seed, cfg)
+    l, n, w = log.curs.shape
+    dev = log.curs.device
+    f = torch.as_tensor(modulator, dtype=torch.float32, device=dev).reshape(l, 1, 1)
+    start = torch.arange(n, device=dev)[None, :, None]
+    flat = (start * n + log.curs.to(torch.int64)).reshape(-1)
+    vals = (f * log.loads / cfg.walks_per_node).reshape(-1)
+    out = torch.zeros(n * n, dtype=torch.float32, device=dev)
+    return out.index_add(0, flat, vals).reshape(n, n)

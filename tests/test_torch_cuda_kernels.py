@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (stencil product), K2 (the two passes of the fused
-masked-Gram CG) and K3 (ELL → stencil) against their plain PyTorch versions,
-on the card. Marked ``gpu``; each test skips, inside
+masked-Gram CG), K3 (ELL → stencil) and K4 (fused walks → dense step
+matrices) against their plain PyTorch versions, on the card. Marked ``gpu``; each test skips, inside
 its fixture, when there is no CUDA card (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -9,7 +9,12 @@ This file imports no JAX, so it also runs on a machine without it:
 Tolerances: K1 sums S float32 terms with fma in another order than the
 plain roll chain (relative 1e-5 of max |ref|), and so do K2a and K2b; K2b's
 fused dot is a float32 sum of N terms in another order (relative 1e-5); K3 places at most one entry
-per output cell, so it is exact.
+per output cell, so it is exact. K4 walks the plain version's walks bit for bit
+and differs in the order of up to W float32 additions per cell (shared-memory
+atomics) and in dividing by W after the sum, where the plain version adds W
+copies of fl(load / W) one after another (its own error is up to W · 2^-24 of
+the largest cell): 3e-5 of max |ref|; two launches of the kernel differ by
+summation order only, 1e-5.
 """
 import numpy as np
 import pytest
@@ -18,6 +23,10 @@ import torch
 from graphgp_tpu_torch.cuda_kernels import gram as k2
 from graphgp_tpu_torch.cuda_kernels import stencil as k1
 from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
+from graphgp_tpu_torch.cuda_kernels import walker as k4
+from graphgp_tpu_torch.data import synthetic
+from graphgp_tpu_torch.graphs import PackedGraph, pack_dense, pack_laplacian
+from graphgp_tpu_torch.walker import WalkConfig
 
 
 def _random_stencil(n, s, seed, big_offsets=False):
@@ -188,3 +197,86 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         k3.ell_to_stencil_cuda(torch.zeros(1, 5, 2, dtype=torch.int64, device=cuda),
                                torch.zeros(1, 5, 2, device=cuda),
                                torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+def _k4_check(graph, seed, cfg):
+    before = k4.launches
+    out = k4.sample_dense_step_matrices_cuda(graph, seed, cfg)
+    again = k4.sample_dense_step_matrices_cuda(graph, seed, cfg)
+    torch.cuda.synchronize()
+    assert k4.launches - before == 2
+    ref = k4.sample_dense_step_matrices_plain(graph, seed, cfg)
+    n = graph.num_nodes
+    assert out.shape == ref.shape == (cfg.max_walk_length, n, n)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 3e-5 * scale
+    assert float((out - again).abs().max()) <= 1e-5 * scale  # atomics: summation order only
+    assert torch.equal(out[0], torch.eye(n, device=out.device))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablation", [False, True])
+@pytest.mark.parametrize("n,w,steps", [(64, 1, 5), (64, 50, 3), (225, 50, 10), (225, 1000, 4),
+                                       (900, 1000, 10), (900, 1, 10), (4096, 50, 10)])
+def test_k4_kernel_matches_plain(cuda, n, w, steps, ablation):
+    adj = synthetic.generate("grid", n, seed=1)["adjacency"]
+    graph = (pack_dense(adj.toarray()) if ablation else pack_laplacian(adj)).to(cuda)
+    cfg = WalkConfig(walks_per_node=w, p_halt=0.05 if ablation else 0.1,
+                     max_walk_length=steps, ablation=ablation)
+    _k4_check(graph, 7 + n, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,steps,passes", [(4096, 16, 2), (4096, 30, 3), (2500, 24, 2)])
+def test_k4_kernel_long_walks_take_several_passes(cuda, n, steps, passes):
+    """L·N floats above a block's 227 KB of shared memory: the kernel works
+    through groups of steps, replaying the walk for each."""
+    assert -(-steps // k4.steps_per_pass(n, steps)) == passes
+    graph = pack_laplacian(synthetic.generate("grid", n, seed=2)["adjacency"]).to(cuda)
+    cfg = WalkConfig(walks_per_node=40, p_halt=0.02, max_walk_length=steps)
+    _k4_check(graph, 11, cfg)
+
+
+@pytest.mark.gpu
+def test_k4_kernel_isolated_node_and_er_graph(cuda):
+    """A degree-0 row of the walked matrix halts at once: its rows are zero
+    after step 0. (pack_dense of a raw adjacency, the ablation walk, keeps
+    such a row; the Laplacian gives an isolated node a unit self-loop.)"""
+    rng = np.random.default_rng(3)
+    n = 97
+    adj = np.triu((rng.random((n, n)) < 0.08).astype(np.float32), 1)
+    adj = adj + adj.T
+    adj[5, :] = adj[:, 5] = 0.0
+    for ablation, graph in ((True, pack_dense(adj)), (False, pack_laplacian(adj))):
+        cfg = WalkConfig(walks_per_node=33, p_halt=0.1, max_walk_length=6, ablation=ablation)
+        out = _k4_check(graph.to(cuda), 5, cfg)
+        if ablation:
+            assert int(graph.degree[5]) == 0
+            assert bool((out[1:, 5, :] == 0).all())
+
+
+@pytest.mark.gpu
+def test_k4_wrapper_rejects_bad_inputs(cuda):
+    n = k4.MAX_NODES + 1
+    big = PackedGraph(torch.zeros((n, 1), dtype=torch.int32, device=cuda),
+                      torch.zeros((n, 1), device=cuda),
+                      torch.zeros(n, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="supports N <= 4096"):
+        k4.sample_dense_step_matrices_cuda(big, 0, WalkConfig(walks_per_node=8))
+    graph = pack_laplacian(synthetic.generate("ring", 32)["adjacency"])
+    with pytest.raises(ValueError, match="CUDA device"):
+        k4.sample_dense_step_matrices_cuda(graph, 0, WalkConfig())
+    g = graph.to(cuda)
+    # ids outside the table are not refused (no pass over the graph, no wait
+    # for the device): they end their walk, and the kernel stays in bounds
+    stray = k4.sample_dense_step_matrices_cuda(
+        PackedGraph(g.neighbors + 31, g.weights, g.degree + 7), 0, WalkConfig())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(stray).all()) and torch.equal(stray[0], torch.eye(32, device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        k4.sample_dense_step_matrices_cuda(
+            PackedGraph(g.neighbors.long(), g.weights, g.degree), 0, WalkConfig())
+    with pytest.raises(ValueError, match="walks_per_node"):
+        k4.sample_dense_step_matrices_cuda(g, 0, WalkConfig(walks_per_node=0))
+    assert k4.sample_dense_step_matrices_cuda(g, 0, WalkConfig(max_walk_length=0)).shape == (0, 32, 32)
