@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Batch-size sweep of the port's stencil kernels on one CUDA card.
 
-Times K1 (stencil product), K2a and K2b (the fused masked-Gram passes) of
-graphgp_tpu_torch at the flagship grid's shape (S = 41 offsets dx + 1000·dy
-with |dx| + |dy| ≤ 4, N = 1e6) on random tensors, for B in 1, 4, 8, 12, 16,
-and for two orders of the same offsets: sorted ascending (what the offset
-vocabulary gives) and dx-major (neighbouring offsets far apart in memory).
-CUDA events, 50 launches after 5 warm-ups; two rounds, to show the spread.
+Times K1 (stencil product), its dw kernel (the weight gradient), K2a and K2b
+(the fused masked-Gram passes) of graphgp_tpu_torch at the flagship grid's
+shape (S = 41 offsets dx + 1000·dy with |dx| + |dy| ≤ 4, N = 1e6) on random
+tensors, for B in 1, 4, 8, 12, 16, and for two orders of the same offsets:
+sorted ascending (what the offset vocabulary gives) and dx-major
+(neighbouring offsets far apart in memory; K1 and dw sort them into bands
+themselves, K2 reads them in the order given). CUDA events, 50 launches
+after 5 warm-ups; two rounds, to show the spread.
 
 Usage, from the repository root: python3 benchmarks/torch_stencil_sweep.py
 """
@@ -58,6 +60,7 @@ def main() -> int:
                 t = torch.randn(b, N, device=dev)
                 print(f"{order} round {rnd} B={b}: "
                       f"K1 {ms(lambda: k1.stencil_matvec_cuda(w, v, offs)):.4f} ms  "
+                      f"dw {ms(lambda: k1.stencil_dw_cuda(v, t, offs)):.4f} ms  "
                       f"K2a {ms(lambda: k2.rmv_mask_cuda(w_shift, mask, v, neg)):.4f} ms  "
                       f"K2b {ms(lambda: k2.mv_epilogue_cuda(w, t, mask, v, nv, offs)):.4f} ms",
                       flush=True)

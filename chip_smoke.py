@@ -14,9 +14,13 @@ paths' own tensors:
   3. the flagship: 1000x1000 grid, WalkConfig(1000, 0.1, 5),
      preprocess_graph(layout="auto"), then run_optimization with
      GRFThompson(kind="free") at batch 100 from 10 initial points; the kernel
-     launch counters are zeroed just before and read just after;
+     launch counters are zeroed just before and read just after, and every
+     stencil product differentiated on the card must take its dw from K1's
+     gradient kernel, with no shifted table built in a backward;
   4. a profiled fit of PROFILE_EPOCHS epochs at the final observation set:
-     wall and device time per epoch, the device's idle share, top kernels;
+     wall and device time per epoch, the device's idle share, top kernels,
+     and device ms per epoch of K1, its dw kernel, roll, elementwise ops and
+     reductions;
   5. the scaling path through graphgp_tpu_torch.cli.scaling's phase functions
      at the reference protocol's top size (ring N = 2^20, walks_per_node 100,
      L = 3, train N/2, 50 Adam epochs, 64 pathwise samples) and at 256 and
@@ -25,10 +29,12 @@ paths' own tensors:
   6. the CG bench shape on the flagship's stencil (mask = every second node,
      B = 8, 20 iterations at tol 0): iterations/s through the fused K2 solve
      and through the K1 composition it replaces;
-  7. K1 (stencil product, forward, transpose, autograd), K2a and K2b (the
-     fused masked-Gram passes) and K3 (ELL → stencil) against their plain
-     versions, and their times (CUDA events) beside the plain version's, a
-     library call's where one exists, and the bound from this run's shapes;
+  7. K1 (stencil product, forward and transpose at B = 1, 8, 16), its dw
+     kernel (B = 1, 16, bit-identical on repeat) and the autograd of both
+     products, K2a and K2b (the fused masked-Gram passes) and K3 (ELL →
+     stencil) against their plain versions, and their times (CUDA events)
+     beside the plain version's, a library call's where one exists, and the
+     bound from this run's shapes;
   8. the dense regime: the quickstart kernels, card against CPU and against
      the exact heat kernel; the ablation protocol through
      graphgp_tpu_torch.cli.ablation (30x30 mesh, beta 10, amplitude 10, noise
@@ -118,6 +124,25 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_by_kernel(build_log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output."""
+    out: dict = {}
+    name, spill = None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -246,6 +271,43 @@ def small_agreement_full_space(device) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _guard_k1_backward(k1):
+    """Wrap K1's backward for one run: count the products differentiated on
+    the card and the dw launches they need, and any shifted table built or
+    plain dw reduction run on the card inside a backward. Returns (stats,
+    restore)."""
+    stats = {"products": 0, "dw_needed": 0, "tables_in_backward": 0, "plain_dw_on_card": 0}
+    real = (k1._StencilMatvec.backward, k1.shifted_weights, k1._dw_matvec)
+    depth = [0]
+
+    def backward(ctx, g):
+        if ctx.needs_input_grad[0] and g.is_cuda:
+            stats["products"] += 1
+            stats["dw_needed"] += -(-g.shape[0] // k1.MAX_BATCH)
+        depth[0] += 1
+        try:
+            return real[0](ctx, g)
+        finally:
+            depth[0] -= 1
+
+    def shifted_weights(w, offsets):
+        stats["tables_in_backward"] += depth[0] > 0
+        return real[1](w, offsets)
+
+    def dw_plain(v, g, offsets):
+        stats["plain_dw_on_card"] += v.is_cuda
+        return real[2](v, g, offsets)
+
+    k1._StencilMatvec.backward = staticmethod(backward)
+    k1.shifted_weights, k1._dw_matvec = shifted_weights, dw_plain
+
+    def restore():
+        k1._StencilMatvec.backward = staticmethod(real[0])
+        k1.shifted_weights, k1._dw_matvec = real[1], real[2]
+
+    return stats, restore
+
+
 def flagship(device) -> dict:
     import numpy as np
     import torch
@@ -266,8 +328,9 @@ def flagship(device) -> dict:
     log(f"depth cut: {BO_ITERATIONS} BO iterations x {TRAIN_EPOCHS} Adam epochs "
         "(reference protocol: 50 x 30); widths uncut")
 
-    k1.launches = 0
+    k1.launches = k1.dw_launches = 0
     k3.launches = 0
+    guard, restore_k1 = _guard_k1_backward(k1)
     trace: dict = {}
     torch.cuda.reset_peak_memory_stats()
     feats = preprocess_graph(data["adjacency"], cfg, seed=DATA_SEED, cache_dir=None,
@@ -293,7 +356,9 @@ def flagship(device) -> dict:
                               initial_points=INITIAL_POINTS, batch_size=BATCH_SIZE, seed=BO_SEED)
     torch.cuda.synchronize()
     bo_s = time.perf_counter() - t_bo
-    launches = {"stencil_matvec": k1.launches, "ell_to_stencil": k3.launches}
+    restore_k1()
+    launches = {"stencil_matvec": k1.launches, "stencil_dw": k1.dw_launches,
+                "ell_to_stencil": k3.launches}
 
     mats = trace["ell"]
     s_count = feats.mats.num_offsets
@@ -308,8 +373,17 @@ def flagship(device) -> dict:
     regrets = result.regrets()
     log(f"regret per iteration: {regrets.tolist()}  final {regrets[-1]:.4f}")
     log(f"launches on the main path: {launches}; K1 launches per BO iteration: {per_iteration}")
+    log(f"K1 backward on the main path: {guard['products']} products differentiated on the card, "
+        f"{guard['dw_needed']} dw launches needed, {launches['stencil_dw']} made; shifted tables "
+        f"built in a backward {guard['tables_in_backward']}, plain dw reductions on the card "
+        f"{guard['plain_dw_on_card']}")
 
     check(launches["stencil_matvec"] > 0, "K1 was not launched on the main path")
+    check(launches["stencil_dw"] > 0, "K1's dw kernel was not launched on the main path")
+    check(guard["products"] > 0 and launches["stencil_dw"] == guard["dw_needed"],
+          "a stencil product differentiated on the card did not go through the dw kernel")
+    check(guard["tables_in_backward"] == 0 and guard["plain_dw_on_card"] == 0,
+          "a backward built a shifted table or ran the plain dw reduction on the card")
     check(launches["ell_to_stencil"] > 0, "K3 was not launched on the main path")
     check(feats.mats.vals.shape == (MAX_WALK_LENGTH, s_count, n), "stencil shape")
     check(bool(torch.isfinite(feats.mats.vals).all()), "stencil values not finite")
@@ -378,6 +452,31 @@ def fit_profile(device, flag: dict) -> None:
     for name, (t_us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {t_us / 1e3 / PROFILE_EPOCHS:8.3f} ms/epoch {count // PROFILE_EPOCHS:6d} "
             f"calls/epoch  {name[:90]}")
+    groups: dict = {}
+    for name, (t_us, count) in by_name.items():
+        t, c = groups.get(_op_group(name), (0.0, 0))
+        groups[_op_group(name)] = (t + t_us, c + count)
+    log("fit profile by op, per epoch: " + "; ".join(
+        f"{g} {groups.get(g, (0.0, 0))[0] / 1e3 / PROFILE_EPOCHS:.3f} ms "
+        f"({groups.get(g, (0.0, 0))[1] // PROFILE_EPOCHS} calls)" for g in OP_GROUPS))
+
+
+OP_GROUPS = ("K1", "K1 dw", "roll", "elementwise", "reductions", "other")
+
+
+def _op_group(kernel_name: str) -> str:
+    """The fit profile's op group of one device kernel's name."""
+    if "stencil_matvec_kernel" in kernel_name:
+        return "K1"
+    if "stencil_dw_kernel" in kernel_name:
+        return "K1 dw"
+    if "roll" in kernel_name:
+        return "roll"
+    if "elementwise" in kernel_name:
+        return "elementwise"
+    if "reduce" in kernel_name:
+        return "reductions"
+    return "other"
 
 
 # ---------------------------------------------------------------------------
@@ -707,25 +806,33 @@ def k2_checks(device, flag: dict, scal: dict) -> list:
     return rows
 
 
-def kernel_checks(device, flag: dict) -> list:
+def k1_checks(device, flag: dict) -> list:
+    """K1 (forward and transposed at B = 1, 8, 16) and its dw kernel (B = 1
+    and 16) on the flagship's own w: against their plain versions, dw
+    bit-identical on repeat, the autograd of the two products through the
+    new backward, and their times beside the plain versions', the bound and,
+    for K1, torch.sparse.mm. Returns the kernels line's K1 and dw rows."""
     import torch
 
     from graphgp_tpu_torch.cuda_kernels import stencil as k1
-    from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
     from graphgp_tpu_torch.features import contract
 
-    feats, mats = flag["feats"], flag["mats"]
+    feats = flag["feats"]
     with torch.no_grad():
         phi = contract(feats, flag["params"]["modulator"])
     w, w_shift = phi.w.contiguous(), phi.w_shift.contiguous()
     s, n = w.shape
     offs = k1.center_offsets(feats.mats.offsets, n).tolist()
     neg = [-o for o in offs]
+    plan = k1.plan_bands(offs)
+    log(f"K1 band plan: {plan.num_bands} bands, spreads "
+        f"{[max(o for _, o in e) - lo for lo, e in plan.bands()]}; a block owns {plan.tile(1)} "
+        f"columns and {plan.smem_bytes(1)} B of shared memory at B = 1, {plan.tile(16)} and "
+        f"{plan.smem_bytes(16)} B at B = 16 (dw: {plan.smem_bytes(16, weights=False)} B)")
     gen = torch.Generator(device=device).manual_seed(0)
-    rows = []
+    k1_entry = dw_entry = None
 
-    k1_entry = None
-    for b in (1, 16):
+    for b in (1, CG_BENCH_BATCH, 16):
         v = torch.randn((b, n), generator=gen, device=device)
         out = k1.stencil_matvec_cuda(w, v, offs)
         ref = k1.matvec_plain(w, v, offs)
@@ -737,19 +844,12 @@ def kernel_checks(device, flag: dict) -> list:
             ref_t = ref_t + torch.roll(w[si][None, :] * v, off, dims=-1)
         err_t, rel_t = rel_err(out_t, ref_t)
         check(rel_t <= REL_TOL_K1, f"K1 transpose B={b}: rel err {rel_t}")
-
-        g = torch.randn((b, n), generator=gen, device=device)
-        wk, vk = w.clone().requires_grad_(True), v.clone().requires_grad_(True)
-        (k1.stencil_matvec(wk, vk, offs) * g).sum().backward()
-        wp, vp = w.clone().requires_grad_(True), v.clone().requires_grad_(True)
-        (k1.matvec_plain(wp, vp, offs) * g).sum().backward()
-        _, rel_dw = rel_err(wk.grad, wp.grad)
-        _, rel_dv = rel_err(vk.grad, vp.grad)
-        check(rel_dw <= REL_TOL_K1 and rel_dv <= REL_TOL_K1,
-              f"K1 autograd B={b}: dw rel {rel_dw}, dv rel {rel_dv}")
-
-        ms = cuda_ms(lambda: k1.stencil_matvec_cuda(w, v, offs))
-        ms_t = cuda_ms(lambda: k1.stencil_matvec_cuda(w_shift, v, neg))
+        del ref_t
+        # forward and transpose in turns (f, t, t, f); the faster read of each
+        fwd = lambda: k1.stencil_matvec_cuda(w, v, offs)
+        trn = lambda: k1.stencil_matvec_cuda(w_shift, v, neg)
+        reads = [cuda_ms(fn) for fn in (fwd, trn, trn, fwd)]
+        ms, ms_t = min(reads[0], reads[3]), min(reads[1], reads[2])
         plain = cuda_ms(lambda: k1.matvec_plain(w, v, offs), reps=5, warmup=1)
         phi_csr = _sparse_phi(w, offs)
         v_t = v.T.contiguous()
@@ -757,12 +857,13 @@ def kernel_checks(device, flag: dict) -> list:
         _, rel_lib = rel_err(lib_out, ref)
         check(rel_lib <= 1e-4, f"sparse-product yardstick disagrees: rel {rel_lib}")
         lib = cuda_ms(lambda: torch.sparse.mm(phi_csr, v_t), reps=10, warmup=2)
-        del phi_csr
+        del phi_csr, lib_out
         bnd, by = bound_ms(4.0 * (s * n + 2 * b * n), 2.0 * s * b * n)
-        log(f"K1 stencil_matvec B={b} S={s} N={n}: fwd {ms:.4f} ms, transpose {ms_t:.4f} ms, "
-            f"plain {plain:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound {bnd:.4f} ms ({by}); "
-            f"max abs err fwd {err:.3e} (rel {rel:.3e}), transpose {err_t:.3e} (rel {rel_t:.3e}), "
-            f"dw rel {rel_dw:.3e}, dv rel {rel_dv:.3e}")
+        log(f"K1 stencil_matvec B={b} S={s} N={n}: fwd {ms:.4f} ms, transpose {ms_t:.4f} ms "
+            f"(reads f, t, t, f: {', '.join(f'{r:.4f}' for r in reads)}), "
+            f"plain {plain:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound {bnd:.4f} ms ({by}, "
+            f"{bnd / ms:.2f} of it); max abs err fwd {err:.3e} (rel {rel:.3e}), transpose "
+            f"{err_t:.3e} (rel {rel_t:.3e})")
         if b == 16:
             k1_entry = {
                 "name": "stencil_matvec", "route": "cuda",
@@ -771,8 +872,59 @@ def kernel_checks(device, flag: dict) -> list:
                 "launches": flag["launches"]["stencil_matvec"], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib,
             }
-    rows.append(k1_entry)
 
+    for b in (1, 16):
+        v = torch.randn((b, n), generator=gen, device=device)
+        g = torch.randn((b, n), generator=gen, device=device)
+        dw = k1.stencil_dw_cuda(v, g, offs)
+        err, rel = rel_err(dw, k1._dw_matvec(v, g, offs))
+        check(rel <= REL_TOL_K1, f"K1 dw B={b}: rel err {rel}")
+        check(torch.equal(dw, k1.stencil_dw_cuda(v, g, offs)), f"K1 dw B={b}: not bit-identical")
+        _, rel_n = rel_err(k1.stencil_dw_cuda(v, g, neg), k1._dw_matvec(v, g, neg))
+        check(rel_n <= REL_TOL_K1, f"K1 dw B={b} under -offsets: rel err {rel_n}")
+        del dw
+
+        # the operator's two products, differentiated through the new backward
+        wk, sk = w.clone().requires_grad_(True), w_shift.clone().requires_grad_(True)
+        vk = v.clone().requires_grad_(True)
+        (k1.stencil_matvec(wk, k1.stencil_matvec(sk, vk, neg, wk), offs, sk) * g).sum().backward()
+        wp, sp = w.clone().requires_grad_(True), w_shift.clone().requires_grad_(True)
+        vp = v.clone().requires_grad_(True)
+        (k1.matvec_plain(wp, k1.matvec_plain(sp, vp, neg), offs) * g).sum().backward()
+        rels = [rel_err(a.grad, p.grad)[1] for a, p in ((wk, wp), (sk, sp), (vk, vp))]
+        check(max(rels) <= REL_TOL_K1, f"K1 autograd B={b}: dw, dw_shift, dv rel {rels}")
+        del wk, sk, vk, wp, sp, vp
+
+        # read before and after the plain version; the faster read
+        reads = [cuda_ms(lambda: k1.stencil_dw_cuda(v, g, offs))]
+        plain = cuda_ms(lambda: k1._dw_matvec(v, g, offs), reps=5, warmup=1)
+        reads.append(cuda_ms(lambda: k1.stencil_dw_cuda(v, g, offs)))
+        ms = min(reads)
+        bnd, by = bound_ms(4.0 * (s * n + 2 * b * n), 2.0 * s * b * n)
+        log(f"K1 dw stencil_dw B={b} S={s} N={n}: {ms:.4f} ms (reads {reads[0]:.4f}, "
+            f"{reads[1]:.4f}), plain {plain:.4f} ms, no single "
+            f"PyTorch call, bound {bnd:.4f} ms ({by}, {bnd / ms:.2f} of it); max abs err "
+            f"{err:.3e} (rel {rel:.3e}), under -offsets rel {rel_n:.3e}; second launch "
+            f"bit-identical; autograd dw / dw_shift / dv rel {rels[0]:.3e} / {rels[1]:.3e} / "
+            f"{rels[2]:.3e}")
+        if b == 16:
+            dw_entry = {
+                "name": "stencil_dw", "route": "cuda",
+                "source": "graphgp_tpu_torch/csrc/stencil.cu",
+                "replaces": "graphgp_tpu/pallas_kernels/stencil.py:201",
+                "launches": flag["launches"]["stencil_dw"], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            }
+    return [k1_entry, dw_entry]
+
+
+def k3_check(device, flag: dict) -> dict:
+    import torch
+
+    from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
+
+    feats, mats = flag["feats"], flag["mats"]
+    s, n = feats.mats.num_offsets, feats.num_nodes
     cols, vals = mats.cols, mats.vals
     off_t = torch.from_numpy(feats.mats.offsets).to(device)
     out = k3.ell_to_stencil_cuda(cols, vals, off_t)
@@ -788,14 +940,13 @@ def kernel_checks(device, flag: dict) -> list:
                        live * (math.ceil(math.log2(max(s, 2))) + 2))
     log(f"K3 ell_to_stencil L={l} N={n} R={r} S={s} ({live} live entries): {ms:.4f} ms, "
         f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); exactly equal")
-    rows.append({
+    return {
         "name": "ell_to_stencil", "route": "cuda",
         "source": "graphgp_tpu_torch/csrc/stencil_build.cu",
         "replaces": "graphgp_tpu/pallas_kernels/stencil_build.py:73",
         "launches": flag["launches"]["ell_to_stencil"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
-    })
-    return rows
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1097,6 +1248,13 @@ def main() -> int:
     if regs:
         log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, "
             f"largest spill {max(spills, default=0)} bytes")
+    per_kernel = ptxas_by_kernel(_build.build_log)
+    for kernel in ("stencil_matvec_kernel", "stencil_dw_kernel"):
+        for b in (1, 8, 16):
+            hit = [v for k, v in per_kernel.items() if f"{kernel}ILi{b}EE" in k]
+            if hit:
+                log(f"  ptxas {kernel}<{b}>: {hit[0][0]} registers, spill stores {hit[0][1]} B, "
+                    f"spill loads {hit[0][2]} B")
 
     t0 = time.perf_counter()
     small_agreement(device)
@@ -1115,7 +1273,8 @@ def main() -> int:
     cg_bench(device, flag)
     log(f"CG bench: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    k1_row, k3_row = kernel_checks(device, flag)
+    k1_row, dw_row = k1_checks(device, flag)
+    k3_row = k3_check(device, flag)
     k2a_row, k2b_row = k2_checks(device, flag, scal)
     log(f"kernel checks and timings: {time.perf_counter() - t0:.2f} s")
     del flag, scal  # the flagship's and the scaling path's tensors
@@ -1133,7 +1292,7 @@ def main() -> int:
     t0 = time.perf_counter()
     k4_row = k4_checks(device, k4_launches)
     log(f"K4 checks and timings: {time.perf_counter() - t0:.2f} s")
-    rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row]
+    rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row, dw_row]
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -55,8 +55,10 @@ def library_path() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     u32, f32 = ctypes.c_uint32, ctypes.c_float
-    lib.stencil_matvec_f32.argtypes = [p, p, p, p, i, i, ll, p]
+    lib.stencil_matvec_f32.argtypes = [p, p, p, p, i, i, i, i, ll, i, ll, p]
     lib.stencil_matvec_f32.restype = i
+    lib.stencil_dw_f32.argtypes = [p, p, p, p, i, i, i, ll, i, ll, p]
+    lib.stencil_dw_f32.restype = i
     lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, p]
     lib.ell_to_stencil_f32.restype = i
     lib.gram_rmv_mask_f32.argtypes = [p, p, p, p, p, i, i, ll, p]

@@ -321,7 +321,9 @@ class ContractedStencil:
     w: float32 (S, N), ``w[s, i] = Σ_l f_l · vals[l, s, i]``.
     w_shift: float32 (S, N), ``roll(w[s], off_s)``, the transpose's table.
     Both are differentiable functions of the modulator, so gradients reach it
-    through the forward and the transposed product alike.
+    through the forward and the transposed product alike. Each product hands
+    the other's table to its backward for the gradient of v, so no backward
+    builds a table.
     """
 
     w: torch.Tensor
@@ -338,11 +340,11 @@ class ContractedStencil:
 
     def matvec_bm(self, v: torch.Tensor) -> torch.Tensor:
         """``V @ Φᵀ``: Σ_s w_s ⊙ roll(v, −off_s). v: (B, N). Kernel K1."""
-        return k_stencil.matvec_bm(self.w, v, self.offsets)
+        return k_stencil.matvec_bm(self.w, v, self.offsets, self.w_shift)
 
     def rmatvec_bm(self, v: torch.Tensor) -> torch.Tensor:
         """``V @ Φ``: Σ_s roll(w_s ⊙ v, +off_s). v: (B, N). Kernel K1 on w_shift."""
-        return k_stencil.rmatvec_bm(self.w_shift, v, self.offsets)
+        return k_stencil.rmatvec_bm(self.w_shift, v, self.offsets, self.w)
 
     def rows(self, idx: torch.Tensor) -> torch.Tensor:
         """Dense ``Φ[idx, :]`` (R, N): a small scatter of R·S entries."""

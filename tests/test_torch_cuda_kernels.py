@@ -1,13 +1,15 @@
-"""The CUDA kernels K1 (stencil product), K2 (the two passes of the fused
-masked-Gram CG), K3 (ELL → stencil) and K4 (fused walks → dense step
-matrices) against their plain PyTorch versions, on the card. Marked ``gpu``; each test skips, inside
-its fixture, when there is no CUDA card (the kernels have no CPU mode).
+"""The CUDA kernels K1 (stencil product) and its dw (weight gradient), K2
+(the two passes of the fused masked-Gram CG), K3 (ELL → stencil) and K4
+(fused walks → dense step matrices) against their plain PyTorch versions, on
+the card. Marked ``gpu``; each test skips, inside its fixture, when there is
+no CUDA card (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m gpu -q tests/test_torch_cuda_kernels.py
 
 Tolerances: K1 sums S float32 terms with fma in another order than the
-plain roll chain (relative 1e-5 of max |ref|), and so do K2a and K2b; K2b's
+plain roll chain (relative 1e-5 of max |ref|), dw B terms, and so do K2a
+and K2b; dw sums over b in a fixed order, so two launches are equal; K2b's
 fused dot is a float32 sum of N terms in another order (relative 1e-5); K3 places at most one entry
 per output cell, so it is exact. K4 walks the plain version's walks bit for bit
 and differs in the order of up to W float32 additions per cell (shared-memory
@@ -54,9 +56,9 @@ def test_k1_kernel_matches_plain(cuda, n, b, s, big):
     w = torch.from_numpy(w).to(cuda)
     v = torch.randn((b, n), device=cuda)
     before = k1.launches
-    out_m = k1.matvec_bm(w, v, offs)
     w_shift = k1.shifted_weights(w, k1.center_offsets(offs, n))
-    out_r = k1.rmatvec_bm(w_shift, v, offs)
+    out_m = k1.matvec_bm(w, v, offs, w_shift)
+    out_r = k1.rmatvec_bm(w_shift, v, offs, w)
     torch.cuda.synchronize()
     assert k1.launches - before == 2 * -(-b // k1.MAX_BATCH)
     offs_c = k1.center_offsets(offs, n).tolist()
@@ -78,11 +80,161 @@ def test_k1_kernel_gradients_match_plain(cuda):
     g = torch.randn((b, n), device=cuda)
     offs_c = k1.center_offsets(offs, n).tolist()
     wk, vk = w.clone().requires_grad_(True), v.clone().requires_grad_(True)
-    (k1.stencil_matvec(wk, vk, offs_c) * g).sum().backward()
+    (k1.stencil_matvec(wk, vk, offs_c, k1.shifted_weights(w, offs_c)) * g).sum().backward()
     wp, vp = w.clone().requires_grad_(True), v.clone().requires_grad_(True)
     (k1.matvec_plain(wp, vp, offs_c) * g).sum().backward()
     torch.testing.assert_close(wk.grad, wp.grad, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(vk.grad, vp.grad, rtol=1e-5, atol=1e-4)
+
+
+_FLAGSHIP = tuple(sorted(dx + 1000 * dy for dx in range(-4, 5) for dy in range(-4, 5)
+                         if abs(dx) + abs(dy) <= 4))
+
+# (N, offsets, B): N not a multiple of the tile; N % 4 == 0 (16-byte copies)
+# and not; far offsets, each its own band, with the ring's seam inside a
+# tile; S = 256 far and S = 256 dense (bands of 16 offsets); N below one
+# tile; the flagship's offsets at N = 1e6.
+_K1_CASES = {
+    "n1000-s9-b1": (1000, "small9", 1),
+    "n4099-s41-b16": (4099, "small41", 16),
+    "n4096-s41-b5": (4096, "small41", 5),
+    "n777-far-b8": (777, "far7", 8),
+    "n50000-far256-b16": (50_000, "far256", 16),
+    "n1001-dense256-b16": (1001, "dense256", 16),
+    "n60-tiny-b3": (60, "tiny", 3),
+    "flagship-b1": (1_000_000, "flagship", 1),
+    "flagship-b8": (1_000_000, "flagship", 8),
+    "flagship-b16": (1_000_000, "flagship", 16),
+}
+
+
+def _k1_case(name, device):
+    n, kind, b = _K1_CASES[name]
+    if kind.startswith("small"):
+        w, offs = _random_stencil(n, int(kind[5:]), seed=n)
+    elif kind.startswith("far"):
+        w, offs = _random_stencil(n, int(kind[3:]), seed=n, big_offsets=True)
+    else:
+        offs = {"dense256": np.arange(-128, 128), "tiny": np.asarray([0, 1, 59, 30, 7]),
+                "flagship": np.asarray(_FLAGSHIP)}[kind]
+        w = np.random.default_rng(n).normal(size=(offs.size, n)).astype(np.float32)
+    offs_c = tuple(k1.center_offsets(offs, n).tolist())
+    gen = torch.Generator(device=device).manual_seed(n + b)
+    w = torch.from_numpy(w).to(device)
+    v = torch.randn((b, n), generator=gen, device=device)
+    g = torch.randn((b, n), generator=gen, device=device)
+    return w, v, g, offs_c
+
+
+def _rel(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_K1_CASES))
+def test_k1_banded_kernels_match_plain(cuda, name):
+    """The banded product, forward and transposed, and the dw kernel against
+    their plain versions; dw bit-identical on repeat."""
+    w, v, g, offs = _k1_case(name, cuda)
+    neg = tuple(-o for o in offs)
+    w_shift = k1.shifted_weights(w, offs).contiguous()
+    before = (k1.launches, k1.dw_launches)
+    out = k1.stencil_matvec_cuda(w, v, offs)
+    out_t = k1.stencil_matvec_cuda(w_shift, v, neg)
+    dw = k1.stencil_dw_cuda(v, g, offs)
+    dw_again = k1.stencil_dw_cuda(v, g, offs)
+    dw_t = k1.stencil_dw_cuda(v, g, neg)
+    torch.cuda.synchronize()
+    assert (k1.launches - before[0], k1.dw_launches - before[1]) == (2, 3)
+    ref_t = torch.zeros_like(v)
+    for si, off in enumerate(offs):  # Σ_s roll(w_s ⊙ v, +off_s): no shifted table
+        ref_t = ref_t + torch.roll(w[si][None, :] * v, off, dims=-1)
+    assert _rel(out, k1.matvec_plain(w, v, offs)) <= 1e-5  # fp32 sums of S terms, fma, another order
+    assert _rel(out_t, ref_t) <= 1e-5
+    assert _rel(dw, k1._dw_matvec(v, g, offs)) <= 1e-5  # fp32 sums of B terms, fma
+    assert _rel(dw_t, k1._dw_matvec(v, g, neg)) <= 1e-5
+    assert torch.equal(dw, dw_again)  # no atomics: a fixed order over b
+
+
+@pytest.mark.gpu
+def test_k1_kernels_take_unaligned_rows(cuda):
+    """Rows that do not start on 16 bytes (a view one float into a buffer)
+    take the 4-byte copies; N % 4 == 0 would otherwise pick 16."""
+    w, v, g, offs = _k1_case("n4096-s41-b5", cuda)
+    n = v.shape[1]
+    buf = torch.empty(v.numel() + 1, device=cuda)
+    v_odd = buf[1:].view(v.shape)
+    v_odd.copy_(v)
+    assert v_odd.is_contiguous() and v_odd.data_ptr() % 16 != 0
+    out = k1.stencil_matvec_cuda(w, v_odd, offs)
+    dw = k1.stencil_dw_cuda(v_odd, g, offs)
+    assert _rel(out, k1.matvec_plain(w, v, offs)) <= 1e-5
+    assert _rel(dw, k1._dw_matvec(v, g, offs)) <= 1e-5
+    assert n % 4 == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [19, 33])
+def test_k1_dw_sums_row_chunks_in_a_fixed_order(cuda, b):
+    w, _, _, offs = _k1_case("n4099-s41-b16", cuda)
+    n = w.shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    v = torch.randn((b, n), generator=gen, device=cuda)
+    g = torch.randn((b, n), generator=gen, device=cuda)
+    before = k1.dw_launches
+    dw = k1.dw_matvec(v, g, offs)
+    again = k1.dw_matvec(v, g, offs)
+    torch.cuda.synchronize()
+    assert k1.dw_launches - before == 2 * -(-b // k1.MAX_BATCH)
+    assert _rel(dw, k1._dw_matvec(v, g, offs)) <= 1e-5
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.gpu
+def test_k1_autograd_uses_the_kernels_and_builds_no_table(cuda, monkeypatch):
+    """ContractedStencil's two products differentiated on the card: every
+    backward takes dw from the kernel, none calls the plain reduction or
+    builds a table, and the gradients match the plain path's."""
+    w, v, g, offs = _k1_case("n4099-s41-b16", cuda)
+    w_shift = k1.shifted_weights(w, offs)
+    wk, sk = w.clone().requires_grad_(True), w_shift.clone().requires_grad_(True)
+    vk = v.clone().requires_grad_(True)
+    loss = (k1.stencil_matvec(wk, k1.stencil_matvec(sk, vk, [-o for o in offs], wk), offs, sk)
+            * g).sum()
+    plain_calls = []
+    monkeypatch.setattr(k1, "_dw_matvec", lambda *a: plain_calls.append(1))
+    monkeypatch.setattr(k1, "shifted_weights", lambda *a: plain_calls.append(1))
+    before = k1.dw_launches
+    loss.backward()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert plain_calls == [] and k1.dw_launches - before == 2
+    wp, sp = w.clone().requires_grad_(True), w_shift.clone().requires_grad_(True)
+    vp = v.clone().requires_grad_(True)
+    neg = [-o for o in offs]
+    (k1.matvec_plain(wp, k1.matvec_plain(sp, vp, neg), offs) * g).sum().backward()
+    for got, ref in ((wk.grad, wp.grad), (sk.grad, sp.grad), (vk.grad, vp.grad)):
+        assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_k1_dw_wrapper_rejects_bad_inputs(cuda):
+    v = torch.randn(2, 100, device=cuda)
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v, torch.randn(3, 100, device=cuda), (0, 1, -1))
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(torch.randn(17, 100, device=cuda), torch.randn(17, 100, device=cuda),
+                           (0, 1, -1))
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v, torch.randn(2, 100), (0, 1, -1))
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v, torch.randn(100, 2, device=cuda).T, (0, 1, -1))
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v.double(), v.double(), (0, 1, -1))
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v, v, (0, 1, 100))  # not centred
+    with pytest.raises(ValueError):
+        k1.stencil_dw_cuda(v, v, tuple(range(-128, 129)))  # S = 257
 
 
 @pytest.mark.gpu

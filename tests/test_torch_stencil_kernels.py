@@ -44,9 +44,11 @@ def test_plain_matvec_and_rmatvec_match_pallas(big_offsets, b):
     wt, vt = torch.from_numpy(w), torch.from_numpy(v)
     w_shift_t = k1.shifted_weights(wt, k1.center_offsets(offs, n))
     np.testing.assert_array_equal(w_shift_t.numpy(), np.asarray(w_shift_j))
-    np.testing.assert_allclose(k1.matvec_bm(wt, vt, offs).numpy(), np.asarray(ref_m), atol=ATOL)
     np.testing.assert_allclose(
-        k1.rmatvec_bm(w_shift_t, vt, offs).numpy(), np.asarray(ref_r), atol=ATOL
+        k1.matvec_bm(wt, vt, offs, w_shift_t).numpy(), np.asarray(ref_m), atol=ATOL
+    )
+    np.testing.assert_allclose(
+        k1.rmatvec_bm(w_shift_t, vt, offs, wt).numpy(), np.asarray(ref_r), atol=ATOL
     )
 
 
@@ -73,7 +75,8 @@ def test_autograd_matches_jax_vjp(big_offsets):
     dw_j, dv_j = vjp(jnp.asarray(g))
     wt = torch.from_numpy(w).requires_grad_(True)
     vt = torch.from_numpy(v).requires_grad_(True)
-    (k1.stencil_matvec(wt, vt, offs_c) * torch.from_numpy(g)).sum().backward()
+    partner = k1.shifted_weights(wt.detach(), offs_c)
+    (k1.stencil_matvec(wt, vt, offs_c, partner) * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), atol=ATOL)
     np.testing.assert_allclose(vt.grad.numpy(), np.asarray(dv_j), atol=ATOL)
 
@@ -126,7 +129,8 @@ def test_plain_build_matches_pallas_on_random_ell():
 def test_cpu_tensors_never_launch():
     k1.launches = k3.launches = 0
     w, offs = _random_stencil(64, 3, seed=1)
-    k1.matvec_bm(torch.from_numpy(w), torch.ones(2, 64), offs)
+    wt = torch.from_numpy(w)
+    k1.matvec_bm(wt, torch.ones(2, 64), offs, k1.shifted_weights(wt, k1.center_offsets(offs, 64)))
     k3.ell_to_stencil(torch.zeros(1, 64, 2, dtype=torch.int32), torch.zeros(1, 64, 2),
                       torch.tensor([0, 1]))
     assert k1.launches == 0 and k3.launches == 0
