@@ -7,7 +7,9 @@ dense-regime protocols (ablation and traffic regression), and holds each
 hand-written kernel of those paths against its plain PyTorch version on the
 paths' own tensors:
 
-  1. prints the card's name and power limit, builds the kernels (one nvcc);
+  1. prints the card's name and power limit, builds the kernels (one nvcc
+     per source, in parallel) and prints ptxas's registers and spills of K1,
+     dw, K2a and K2b at B = 1, 8, 16;
   2. small-input agreement: a 30x30 grid through the card's path and the
      plain CPU path, same draws, same answers; then full-space prediction on
      a 256-node ring and a 15x15 grid, card against CPU;
@@ -31,7 +33,9 @@ paths' own tensors:
      and through the K1 composition it replaces;
   7. K1 (stencil product, forward and transpose at B = 1, 8, 16), its dw
      kernel (B = 1, 16, bit-identical on repeat) and the autograd of both
-     products, K2a and K2b (the fused masked-Gram passes) and K3 (ELL →
+     products, K2a and K2b (the fused masked-Gram passes, with their band
+     plans; at B = 16 also with the offsets in dx-major order, K1 timed at
+     each shape beside them) and K3 (ELL →
      stencil) against their plain versions, and their times (CUDA events)
      beside the plain version's, a library call's where one exists, and the
      bound from this run's shapes;
@@ -676,9 +680,10 @@ def _sparse_phi(w, offsets):
 
 def k2_check(label: str, w, w_shift, offs, mask, nv, v, launches=None) -> list:
     """K2a and K2b on one set of tensors: against their plain versions, a
-    second launch bit-identical, and their times beside the plain version's,
-    the K1 composition's and a sparse-product yardstick's. Returns the two
-    rows of the kernels line when ``launches`` is given."""
+    second launch bit-identical, and their times beside K1's at the same
+    shape, the plain version's, the K1 composition's and a sparse-product
+    yardstick's. Returns the two rows of the kernels line when ``launches``
+    is given."""
     import torch
 
     from graphgp_tpu_torch.cuda_kernels import gram as k2
@@ -704,8 +709,15 @@ def k2_check(label: str, w, w_shift, offs, mask, nv, v, launches=None) -> list:
     check(torch.equal(out, out2) and torch.equal(dot, dot2), f"K2b {label}: not repeatable")
     check(torch.equal(out[:, mask == 0], v[:, mask == 0]), f"K2b {label}: identity rows changed")
 
-    ms_a = cuda_ms(lambda: k2.rmv_mask_cuda(w_shift, mask, v, neg))
-    ms_b = cuda_ms(lambda: k2.mv_epilogue_cuda(w, t, mask, v, nv, offs))
+    # K2a, K2b and K1 at the same shape, in turns (a, b, K1, K1, b, a); the
+    # faster read of each
+    fn_a = lambda: k2.rmv_mask_cuda(w_shift, mask, v, neg)
+    fn_b = lambda: k2.mv_epilogue_cuda(w, t, mask, v, nv, offs)
+    fn_k1 = lambda: k1.stencil_matvec_cuda(w, v, offs)
+    reads = [cuda_ms(fn) for fn in (fn_a, fn_b, fn_k1, fn_k1, fn_b, fn_a)]
+    ms_a, ms_b, ms_k1 = min(reads[0], reads[5]), min(reads[1], reads[4]), min(reads[2], reads[3])
+    # K2b's kernel alone, its partials left unsummed (the wrapper adds them with torch.sum)
+    ms_b_kernel = cuda_ms(lambda: k2.mv_epilogue_partials_cuda(w, t, mask, v, nv, offs))
     plain_a = cuda_ms(lambda: k2.rmv_mask_plain(w_shift, mask, v, neg), reps=5, warmup=1)
     plain_b = cuda_ms(lambda: k2.mv_epilogue_plain(w, t, mask, v, nv, offs), reps=5, warmup=1)
     # what the kernels fuse: a K1 launch plus the elementwise passes around it
@@ -737,10 +749,13 @@ def k2_check(label: str, w, w_shift, offs, mask, nv, v, launches=None) -> list:
     del phi_csr
     bnd_a, by_a = bound_ms(4.0 * (s * n + 2 * b * n + n), 2.0 * s * b * n + b * n * s)
     bnd_b, by_b = bound_ms(4.0 * (s * n + 3 * b * n + n), 2.0 * s * b * n + 7.0 * b * n)
-    log(f"K2a gram_rmv_mask {label} B={b} S={s} N={n}: {ms_a:.4f} ms, plain {plain_a:.4f} ms, "
+    log(f"K2a gram_rmv_mask {label} B={b} S={s} N={n}: {ms_a:.4f} ms (K1 at this shape "
+        f"{ms_k1:.4f} ms; reads a, b, K1, K1, b, a: {', '.join(f'{r:.4f}' for r in reads)}), "
+        f"plain {plain_a:.4f} ms, "
         f"mask pass + K1 {comp_a:.4f} ms, mask pass + torch.sparse.mm {lib_a:.4f} ms, "
         f"bound {bnd_a:.4f} ms ({by_a}); max abs err {err_a:.3e} (rel {rel_a:.3e})")
-    log(f"K2b gram_mv_epilogue {label} B={b} S={s} N={n}: {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
+    log(f"K2b gram_mv_epilogue {label} B={b} S={s} N={n}: {ms_b:.4f} ms (the kernel alone, "
+        f"partials unsummed: {ms_b_kernel:.4f} ms), plain {plain_b:.4f} ms, "
         f"K1 + epilogue passes {comp_b:.4f} ms, torch.sparse.mm + epilogue passes {lib_b:.4f} ms, "
         f"bound {bnd_b:.4f} ms ({by_b}); max abs err {err_b:.3e} (rel {rel_b:.3e}), "
         f"dot rel {rel_dot:.3e}; second launches bit-identical")
@@ -759,12 +774,25 @@ def k2_check(label: str, w, w_shift, offs, mask, nv, v, launches=None) -> list:
     ]
 
 
+def log_k2_plans(label: str, offs: tuple) -> None:
+    """K2's band plans: K2a's of the negated offsets, K2b's of the offsets."""
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+
+    plan_a, plan_b = k1.plan_bands([-o for o in offs]), k1.plan_bands(list(offs))
+    log(f"K2 band plans, {label} (S = {len(offs)}): K2a {plan_a.num_bands} bands of up to "
+        f"{plan_a.band_rows} offsets, K2b {plan_b.num_bands} of up to {plan_b.band_rows}; "
+        + "; ".join(f"B = {b}: {plan_a.tile(b)} columns a block, shared memory K2a "
+                    f"{plan_a.smem_bytes(b, mask=True)} B, K2b {plan_b.smem_bytes(b)} B"
+                    for b in (1, CG_BENCH_BATCH, 16)))
+
+
 def k2_checks(device, flag: dict, scal: dict) -> list:
     """K2 at the scaling path's own tensors (the last fused solve of the run:
     ring N = 2^20, a 16-row chunk of the 64 pathwise residuals), which give
     the rows of the kernels line, and on the flagship's stencil at the CG
-    bench shape for B in {1, 8, 16}; then a 20-iteration fused solve against
-    the same loop over the plain versions."""
+    bench shape for B in {1, 8, 16} and, at B = 16, with the offsets in
+    dx-major order; K1 timed at each shape beside them; then a 20-iteration
+    fused solve against the same loop over the plain versions."""
     import torch
 
     from graphgp_tpu_torch.cuda_kernels import gram as k2
@@ -776,6 +804,7 @@ def k2_checks(device, flag: dict, scal: dict) -> list:
     phi, n = call["phi"], call["phi"].num_nodes
     offs = tuple(k1.center_offsets(phi.offsets, n).tolist())
     nv = call["noise_var"].detach().reshape(1)
+    log_k2_plans("ring", offs)
     rows = k2_check("scaling path, ring", phi.w.contiguous(), phi.w_shift.contiguous(), offs,
                     call["mask"], nv, call["b_rhs"].contiguous(), launches=scal["launches"])
 
@@ -788,10 +817,20 @@ def k2_checks(device, flag: dict, scal: dict) -> list:
     mask = torch.zeros(n, device=device)
     mask[::2] = 1.0
     gen = torch.Generator(device=device).manual_seed(2)
+    log_k2_plans("grid", offs)
+    w, w_shift = phi.w.contiguous(), phi.w_shift.contiguous()
     for b in (1, CG_BENCH_BATCH, 16):
         v = torch.randn((b, n), generator=gen, device=device)
-        k2_check("CG bench shape, grid", phi.w.contiguous(), phi.w_shift.contiguous(), offs,
-                 mask, nv, v)
+        k2_check("CG bench shape, grid", w, w_shift, offs, mask, nv, v)
+    # the same offsets in dx-major order, the weight rows with them: the
+    # planner sorts, so the time should not move
+    dx_major = tuple(int(o) for o in k1.center_offsets(
+        [dx + GRID_SIDE * dy for dx in range(-4, 5) for dy in range(-4, 5)
+         if abs(dx) + abs(dy) <= 4], n))
+    perm = [offs.index(o) for o in dx_major]
+    k2_check("CG bench shape, grid, dx-major offsets", w[perm].contiguous(),
+             w_shift[perm].contiguous(), dx_major, mask, nv, v)
+    del w, w_shift
     rhs = torch.randn((CG_BENCH_BATCH, n), generator=gen, device=device) * mask[None, :]
     got = k2.gram_cg(phi, nv, mask, rhs, tol=0.0, max_iters=CG_BENCH_ITERS)
     ref = k2.gram_cg_plain(phi, nv, mask, rhs, tol=0.0, max_iters=CG_BENCH_ITERS)
@@ -1249,7 +1288,8 @@ def main() -> int:
         log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, "
             f"largest spill {max(spills, default=0)} bytes")
     per_kernel = ptxas_by_kernel(_build.build_log)
-    for kernel in ("stencil_matvec_kernel", "stencil_dw_kernel"):
+    for kernel in ("stencil_matvec_kernel", "stencil_dw_kernel", "gram_rmv_mask_kernel",
+                   "gram_mv_epilogue_kernel"):
         for b in (1, 8, 16):
             hit = [v for k, v in per_kernel.items() if f"{kernel}ILi{b}EE" in k]
             if hit:

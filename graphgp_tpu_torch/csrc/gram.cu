@@ -22,72 +22,64 @@
 // 3.35 TB/s. The arithmetic (2*S*B*N flops a pass) is far below the fp32
 // rate. Reading the weight table dominates.
 //
-// Design. The TPU kernels keep every CG vector in a zero-padded (B, Np) layout
-// with a block of pad columns on each side, mirror the edge columns of
-// periodic stencils into the pads before every product, and gate the output
-// by an indicator of the real columns, all because a Pallas block window
-// cannot wrap around. A CUDA thread indexes (i +- off_s) mod N directly, so
-// none of that exists here: state stays (B, N), wraparound is always exact,
-// and an aperiodic stencil reads its wrap columns against zero weights.
+// The TPU kernels keep every CG vector in a zero-padded (B, Np) layout with a
+// block of pad columns on each side, mirror the edge columns of periodic
+// stencils into the pads before every product, and gate the output by an
+// indicator of the real columns, all because a Pallas block window cannot
+// wrap around. Here the windows are staged column by column mod N, so none
+// of that exists: state stays (B, N), wraparound is always exact, and an
+// aperiodic stencil reads its wrap columns against zero weights.
 //
-// Both kernels share K1's layout (csrc/stencil.cu): one thread owns one node
-// column i and loops over the S offsets, reads the weight once (coalesced
-// across the warp) and applies it to all B rows held in registers (B is a
-// template parameter, 1..16); the shifted operand reads are coalesced and
-// served mostly from L1/L2. What the fusion saves over two K1 launches and
-// the elementwise algebra of the masked operator: the mask multiply rides the
-// operand load of K2a (no masked copy of v is written), the epilogue runs on
-// the accumulators of K2b (no pass over the product), and the CG denominator
-// <v, A v> leaves K2b as per-block partial sums (no pass over v and A v).
+// Design: both kernels are K1's banded product (csrc/bands.cuh, as
+// csrc/stencil.cu uses it). One scalar load of the operand per offset and
+// row, served through L1/L2, would set the pace (S*B = 656 a column at
+// S = 41, B = 16) and depend on the order of the offsets. Instead the
+// planner sorts the offsets into bands, and a block of kTile columns stages
+// each band's window of the operand and its rows of the weight table in
+// shared memory by cp.async, two stages.
+//  - K2a is the product under w_shift and the negated offsets, with the
+//    mask's window staged as one more row of the operand's window (same
+//    start, shift and length); the weight is multiplied by the staged mask at
+//    read time, which is exact because the mask is 0/1. No masked copy of v
+//    is written.
+//  - K2b is the product under w and the offsets over t, then an epilogue on
+//    the accumulators before the store: each thread reads mask[i], v[b, i]
+//    and sigma^2 once per column and writes out coalesced (no pass over the
+//    product), and the CG denominator <v, A v> leaves as one partial sum per
+//    (row, block) (no pass over v and A v).
 //
-// The partial sums are reduced inside a block by warp shuffles and a fixed
-// order over the warps, one value per (row, block); the caller adds the
-// blocks with one torch.sum. No float atomics anywhere: the same inputs give
-// the same bits on every launch, so repeated solves are identical. Threads
-// past N (the last block's tail) take part in the reduction and add zero.
-// sigma^2 is read from device memory: it is a tensor in the caller's
-// parameters, and reading it on the host would stall the stream each launch.
-#include <cuda_runtime.h>
+// The partial sums are reduced in a fixed order: over the thread's kCols
+// columns in order, then by warp shuffles, then over the warps in order; the
+// caller adds the blocks with one torch.sum. No float atomics anywhere: the
+// same inputs give the same bits on every launch, so repeated solves are
+// identical. Columns past N (the last block's tail) add zero. sigma^2 is
+// read from device memory: it is a tensor in the caller's parameters, and
+// reading it on the host would stall the stream each launch.
+#include "bands.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxOffsets = 256;
+using namespace bands;
 
-__device__ __forceinline__ long long wrap(long long j, long long N) {
-  // |off| < N after centring, so one correction is enough
-  if (j < 0) return j + N;
-  if (j >= N) return j - N;
-  return j;
-}
+constexpr int kWarps = kThreads / 32;
 
 template <int B>
 __global__ void __launch_bounds__(kThreads)
 gram_rmv_mask_kernel(const float* __restrict__ w_shift, const float* __restrict__ mask,
                      const float* __restrict__ v, float* __restrict__ t,
-                     const int* __restrict__ neg_offs, int S, long long N) {
-  __shared__ int s_off[kMaxOffsets];
-  for (int k = threadIdx.x; k < S; k += blockDim.x) s_off[k] = neg_offs[k];
-  __syncthreads();
-
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-
-  float acc[B];
+                     const int* __restrict__ plan_g, int plan_len, int band_rows, long long N,
+                     int vec) {
+  banded_kernel<B, true>(w_shift, v, mask, plan_g, plan_len, band_rows, N, vec,
+                         [&](const float (&acc)[Tiling<B>::kCols][B], long long c0, float*) {
 #pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = 0.0f;
-
-  for (int s = 0; s < S; ++s) {
-    const long long j = wrap(i + s_off[s], N);
-    // the mask is 0/1, so folding it into the weight is exact: one multiply
-    // per offset instead of one per batch row
-    const float wm = w_shift[(long long)s * N + i] * mask[j];
+    for (int p = 0; p < Tiling<B>::kCols; ++p) {
+      const long long col = c0 + threadIdx.x + p * kThreads;
+      if (col < N) {
 #pragma unroll
-    for (int b = 0; b < B; ++b) acc[b] = fmaf(wm, v[(long long)b * N + j], acc[b]);
-  }
-#pragma unroll
-  for (int b = 0; b < B; ++b) t[(long long)b * N + i] = acc[b];
+        for (int b = 0; b < B; ++b) t[(long long)b * N + col] = acc[p][b];
+      }
+    }
+  });
 }
 
 template <int B>
@@ -95,117 +87,129 @@ __global__ void __launch_bounds__(kThreads)
 gram_mv_epilogue_kernel(const float* __restrict__ w, const float* __restrict__ t,
                         const float* __restrict__ mask, const float* __restrict__ v,
                         const float* __restrict__ noise_var, float* __restrict__ out,
-                        float* __restrict__ partials, const int* __restrict__ offs,
-                        int S, long long N, int num_blocks) {
-  __shared__ int s_off[kMaxOffsets];
-  __shared__ float s_part[B][kWarps];
-  for (int k = threadIdx.x; k < S; k += blockDim.x) s_off[k] = offs[k];
-  __syncthreads();
-
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < N;
-
-  float acc[B];
+                        float* __restrict__ partials, const int* __restrict__ plan_g,
+                        int plan_len, int band_rows, long long N, int vec, int blocks) {
+  banded_kernel<B, false>(w, t, nullptr, plan_g, plan_len, band_rows, N, vec,
+                          [&](const float (&acc)[Tiling<B>::kCols][B], long long c0,
+                              float* smem) {
+    constexpr int kCols = Tiling<B>::kCols;
+    const float nv = noise_var[0];
+    float dot[B];  // this thread's terms of <v, A v>, its columns in order
 #pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = 0.0f;
-
-  if (live) {
-    for (int s = 0; s < S; ++s) {
-      const float ws = w[(long long)s * N + i];
-      const long long j = wrap(i + s_off[s], N);
+    for (int b = 0; b < B; ++b) dot[b] = 0.0f;
 #pragma unroll
-      for (int b = 0; b < B; ++b) acc[b] = fmaf(ws, t[(long long)b * N + j], acc[b]);
+    for (int p = 0; p < kCols; ++p) {
+      const long long col = c0 + threadIdx.x + p * kThreads;
+      if (col < N) {  // the tail's accumulators are garbage: it adds zero
+        const float m = mask[col];
+        const float nvm = nv * m;
+        const float keep = 1.0f - m;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const float vb = v[(long long)b * N + col];
+          const float o = m * acc[p][b] + nvm * vb + keep * vb;
+          out[(long long)b * N + col] = o;
+          dot[b] += vb * o;
+        }
+      }
     }
-    const float m = mask[i];
-    const float nvm = noise_var[0] * m;
-    const float keep = 1.0f - m;
+
+    float* s_part = smem;  // (B, kWarps) in the freed stages
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      const float vb = v[(long long)b * N + i];
-      const float o = m * acc[b] + nvm * vb + keep * vb;
-      out[(long long)b * N + i] = o;
-      acc[b] = vb * o;  // this column's term of <v, A v>
+      float x = dot[b];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
+      if (lane == 0) s_part[b * kWarps + warp] = x;
     }
-  }
-  // tail threads carry acc = 0 into the reduction
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+    __syncthreads();
+    if (threadIdx.x < B) {
+      float x = 0.0f;
 #pragma unroll
-  for (int b = 0; b < B; ++b) {
-    float x = acc[b];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-    if (lane == 0) s_part[b][warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < B) {
-    float x = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) x += s_part[threadIdx.x][k];
-    partials[(long long)threadIdx.x * num_blocks + blockIdx.x] = x;
-  }
-}
-
-unsigned blocks_for(long long N) { return (unsigned)((N + kThreads - 1) / kThreads); }
-
-template <int B>
-void launch_rmv(const float* w_shift, const float* mask, const float* v, float* t,
-                const int* neg_offs, int S, long long N, cudaStream_t stream) {
-  gram_rmv_mask_kernel<B><<<blocks_for(N), kThreads, 0, stream>>>(w_shift, mask, v, t,
-                                                                  neg_offs, S, N);
+      for (int k = 0; k < kWarps; ++k) x += s_part[threadIdx.x * kWarps + k];
+      partials[(long long)threadIdx.x * blocks + blockIdx.x] = x;
+    }
+  });
 }
 
 template <int B>
-void launch_epilogue(const float* w, const float* t, const float* mask, const float* v,
-                     const float* noise_var, float* out, float* partials, const int* offs,
-                     int S, long long N, cudaStream_t stream) {
-  const unsigned blocks = blocks_for(N);
-  gram_mv_epilogue_kernel<B><<<blocks, kThreads, 0, stream>>>(
-      w, t, mask, v, noise_var, out, partials, offs, S, N, (int)blocks);
+cudaError_t launch_rmv(const float* w_shift, const float* mask, const float* v, float* t,
+                       const int* plan, int plan_len, int band_rows, long long N, size_t smem,
+                       cudaStream_t st) {
+  cudaError_t err = allow_smem(gram_rmv_mask_kernel<B>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = (N % 4 == 0) && aligned16(w_shift) && aligned16(v) && aligned16(mask);
+  gram_rmv_mask_kernel<B><<<num_blocks(B, N), kThreads, smem, st>>>(
+      w_shift, mask, v, t, plan, plan_len, band_rows, N, vec);
+  return cudaGetLastError();
 }
 
-bool bad_shape(int S, int B, long long N) {
-  return S < 1 || S > kMaxOffsets || B < 1 || B > 16 || N < 1;
+template <int B>
+cudaError_t launch_epilogue(const float* w, const float* t, const float* mask, const float* v,
+                            const float* noise_var, float* out, float* partials, const int* plan,
+                            int plan_len, int band_rows, long long N, size_t smem,
+                            cudaStream_t st) {
+  cudaError_t err = allow_smem(gram_mv_epilogue_kernel<B>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = (N % 4 == 0) && aligned16(w) && aligned16(t);
+  const unsigned blocks = num_blocks(B, N);
+  gram_mv_epilogue_kernel<B><<<blocks, kThreads, smem, st>>>(
+      w, t, mask, v, noise_var, out, partials, plan, plan_len, band_rows, N, vec, (int)blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-#define GRAPHGP_BATCH_SWITCH(CALL)                                        \
-  switch (B) {                                                            \
-    case 1: CALL(1); break;   case 2: CALL(2); break;                     \
-    case 3: CALL(3); break;   case 4: CALL(4); break;                     \
-    case 5: CALL(5); break;   case 6: CALL(6); break;                     \
-    case 7: CALL(7); break;   case 8: CALL(8); break;                     \
-    case 9: CALL(9); break;   case 10: CALL(10); break;                   \
-    case 11: CALL(11); break; case 12: CALL(12); break;                   \
-    case 13: CALL(13); break; case 14: CALL(14); break;                   \
-    case 15: CALL(15); break; case 16: CALL(16); break;                   \
-  }
-
-// Number of per-block partial sums gram_mv_epilogue_f32 writes per batch row.
-extern "C" int gram_num_blocks(long long N) { return (int)blocks_for(N); }
-
-extern "C" int gram_rmv_mask_f32(const float* w_shift, const float* mask, const float* v,
-                                 float* t, const int* neg_offs, int S, int B, long long N,
-                                 void* stream) {
-  if (bad_shape(S, B, N)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define GRAPHGP_RMV(n) launch_rmv<n>(w_shift, mask, v, t, neg_offs, S, N, st)
-  GRAPHGP_BATCH_SWITCH(GRAPHGP_RMV)
-#undef GRAPHGP_RMV
-  return (int)cudaGetLastError();
+// Number of per-block partial sums gram_mv_epilogue_f32 writes per batch row
+// at B rows: one per tile of bands::tile_for(B) columns.
+extern "C" int gram_num_blocks(int B, long long N) {
+  return B < 1 || B > 16 || N < 1 ? -1 : (int)bands::num_blocks(B, N);
 }
 
+// t (B, N) from w_shift (S, N), mask (N) and v (B, N) under the band plan of
+// the S negated offsets. `tile` and `smem` are the planner's; both are checked.
+extern "C" int gram_rmv_mask_f32(const float* w_shift, const float* mask, const float* v,
+                                 float* t, const int* plan, int plan_len, int S, int band_rows,
+                                 int B, long long N, int tile, long long smem, void* stream) {
+  if (bands::bad_product_launch(plan_len, S, band_rows, B, N, tile, smem, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (B) {
+#define GRAPHGP_CASE(n) \
+  case n:               \
+    err = launch_rmv<n>(w_shift, mask, v, t, plan, plan_len, band_rows, N, (size_t)smem, st); \
+    break;
+    GRAPHGP_BATCH_CASES(GRAPHGP_CASE)
+#undef GRAPHGP_CASE
+  }
+  return (int)err;
+}
+
+// out (B, N) and partials (B, gram_num_blocks(B, N)) from w (S, N), t, v
+// (B, N), the mask (N) and sigma^2 (one float on the device) under the band
+// plan of the S offsets.
 extern "C" int gram_mv_epilogue_f32(const float* w, const float* t, const float* mask,
                                     const float* v, const float* noise_var, float* out,
-                                    float* partials, const int* offs, int S, int B,
-                                    long long N, void* stream) {
-  if (bad_shape(S, B, N)) return (int)cudaErrorInvalidValue;
+                                    float* partials, const int* plan, int plan_len, int S,
+                                    int band_rows, int B, long long N, int tile, long long smem,
+                                    void* stream) {
+  if (bands::bad_product_launch(plan_len, S, band_rows, B, N, tile, smem, false)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-#define GRAPHGP_EPI(n) \
-  launch_epilogue<n>(w, t, mask, v, noise_var, out, partials, offs, S, N, st)
-  GRAPHGP_BATCH_SWITCH(GRAPHGP_EPI)
-#undef GRAPHGP_EPI
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (B) {
+#define GRAPHGP_CASE(n)                                                                 \
+  case n:                                                                               \
+    err = launch_epilogue<n>(w, t, mask, v, noise_var, out, partials, plan, plan_len,   \
+                             band_rows, N, (size_t)smem, st);                           \
+    break;
+    GRAPHGP_BATCH_CASES(GRAPHGP_CASE)
+#undef GRAPHGP_CASE
+  }
+  return (int)err;
 }

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, from the sources in the checkout, into
-``graphgp_tpu_torch/_build/`` (listed in ``.gitignore``); the library's file
-name carries a hash of the sources, so an edited source is rebuilt.
+Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at first
+use, from the sources in the checkout, into ``graphgp_tpu_torch/_build/``
+(listed in ``.gitignore``); the library's file name carries a hash of every
+source and header (``csrc/*.cu``, ``csrc/*.cuh``) and the flags, so an
+edited file is rebuilt.
 """
 from __future__ import annotations
 
@@ -31,7 +33,13 @@ build_log: str = ""
 
 
 def _sources():
+    """The sources nvcc compiles, sorted."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _hashed_files():
+    """Every file the library is built from: the sources and their headers."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -45,7 +53,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.md5()
-    for src in _sources():
+    for src in _hashed_files():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -61,11 +69,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stencil_dw_f32.restype = i
     lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, p]
     lib.ell_to_stencil_f32.restype = i
-    lib.gram_rmv_mask_f32.argtypes = [p, p, p, p, p, i, i, ll, p]
+    lib.gram_rmv_mask_f32.argtypes = [p, p, p, p, p, i, i, i, i, ll, i, ll, p]
     lib.gram_rmv_mask_f32.restype = i
-    lib.gram_mv_epilogue_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, ll, p]
+    lib.gram_mv_epilogue_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ll, i, ll, p]
     lib.gram_mv_epilogue_f32.restype = i
-    lib.gram_num_blocks.argtypes = [ll]
+    lib.gram_num_blocks.argtypes = [i, ll]
     lib.gram_num_blocks.restype = i
     lib.walk_step_matrices_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, u32, u32, f32, f32, i, p]
     lib.walk_step_matrices_f32.restype = i
@@ -74,25 +82,52 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _compile(path: str) -> str:
+    """Build the library at ``path``: one ``nvcc -c`` per source, all running
+    at once, then one link. Returns nvcc's output (ptxas's ``-v`` lines);
+    raises if a step fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stem = f"{path}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = []
+    for i, src in enumerate(_sources()):
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", f"{stem}.{i}.o", src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
+    objects = [f"{stem}.{i}.o" for i in range(len(procs))]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [_nvcc(), "-shared", "-o", f"{stem}.tmp", *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc={proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{logs[-1]}")
+        os.replace(f"{stem}.tmp", path)
+    finally:
+        for leftover in (*objects, f"{stem}.tmp"):
+            if os.path.exists(leftover):
+                os.remove(leftover)
+    return "".join(logs)
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call (one ``nvcc`` for all sources)."""
+    """The kernel library, built on first call (one ``nvcc`` per source, in
+    parallel)."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     path = library_path()
     if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _compile(path)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-            )
-        os.replace(tmp, path)
     _lib = _declare(ctypes.CDLL(path))
     return _lib
 

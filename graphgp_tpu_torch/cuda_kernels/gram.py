@@ -14,8 +14,10 @@ kernels:
 Counterpart of ``graphgp_tpu/pallas_kernels/gram.py`` (``_rmv_mask``,
 ``_mv_epilogue``, ``_gram_cg_padded``, ``gram_cg``); the CUDA kernels are
 ``csrc/gram.cu``, whose header says what bounds them and why the padded
-layout of the TPU kernels has no counterpart here. State stays (B, N) and
-wraparound is exact for every stencil.
+layout of the TPU kernels has no counterpart here. Both are K1's banded
+product (``csrc/bands.cuh``) under the band plan of their offsets
+(:func:`stencil.plan_bands`, which sorts them: the order they come in does
+not matter). State stays (B, N) and wraparound is exact for every stencil.
 
 CUDA tensors launch the kernels (or raise); CPU tensors take the plain
 versions. There is no gradient: these are prediction solves.
@@ -28,7 +30,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 import torch
 
 from . import _build
-from .stencil import MAX_BATCH, MAX_OFFSETS, _device_offsets, center_offsets, matvec_plain
+from .stencil import MAX_BATCH, MAX_OFFSETS, _device_plan, center_offsets, matvec_plain
 
 # Kernel launches since the last reset; chip_smoke.py reads them.
 rmv_mask_launches = 0
@@ -91,45 +93,57 @@ def rmv_mask_cuda(
     global rmv_mask_launches
     s, b, n = _check("rmv_mask_cuda", w_shift, mask, neg_offsets, v)
     lib = _build.load()
-    offs = _device_offsets(tuple(int(o) for o in neg_offsets), v.device)
+    plan, table = _device_plan(tuple(int(o) for o in neg_offsets), v.device)
     t = torch.empty_like(v)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = lib.gram_rmv_mask_f32(
-            w_shift.data_ptr(), mask.data_ptr(), v.data_ptr(), t.data_ptr(), offs.data_ptr(),
-            s, b, n, ctypes.c_void_p(stream),
+            w_shift.data_ptr(), mask.data_ptr(), v.data_ptr(), t.data_ptr(), table.data_ptr(),
+            table.numel(), s, plan.band_rows, b, n, plan.tile(b), plan.smem_bytes(b, mask=True),
+            ctypes.c_void_p(stream),
         )
     rmv_mask_launches += 1
     _build.check(rc, "gram_rmv_mask_f32")
     return t
 
 
-def mv_epilogue_cuda(
+def mv_epilogue_partials_cuda(
     w: torch.Tensor, t: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
     noise_var: torch.Tensor, offsets: Tuple[int, ...],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2b once → (out (B, N), ⟨v, out⟩ (B,)). ``noise_var`` is a
-    one-element float32 tensor on the device (never read on the host). The
-    kernel writes one partial sum per (row, block); one ``torch.sum`` adds the
-    blocks, so the dot is the same bits on every launch."""
+    """Launch K2b once → (out (B, N), partials (B, ⌈N / tile⌉)): one partial
+    sum of ``v·out`` per row and block of ``stencil.BandPlan.tile(B)``
+    columns. ``noise_var`` is a one-element float32 tensor on the device
+    (never read on the host)."""
     global mv_epilogue_launches
     s, b, n = _check("mv_epilogue_cuda", w, mask, offsets, v, t)
     if not (noise_var.is_cuda and noise_var.device == v.device
             and noise_var.dtype == torch.float32 and noise_var.numel() == 1):
         raise ValueError("mv_epilogue_cuda: noise_var must be one float32 on v's device")
     lib = _build.load()
-    offs = _device_offsets(tuple(int(o) for o in offsets), v.device)
+    plan, table = _device_plan(tuple(int(o) for o in offsets), v.device)
     out = torch.empty_like(v)
-    partials = torch.empty((b, lib.gram_num_blocks(n)), dtype=torch.float32, device=v.device)
+    partials = torch.empty((b, lib.gram_num_blocks(b, n)), dtype=torch.float32, device=v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = lib.gram_mv_epilogue_f32(
             w.data_ptr(), t.data_ptr(), mask.data_ptr(), v.data_ptr(), noise_var.data_ptr(),
-            out.data_ptr(), partials.data_ptr(), offs.data_ptr(), s, b, n,
-            ctypes.c_void_p(stream),
+            out.data_ptr(), partials.data_ptr(), table.data_ptr(), table.numel(), s,
+            plan.band_rows, b, n, plan.tile(b), plan.smem_bytes(b), ctypes.c_void_p(stream),
         )
     mv_epilogue_launches += 1
     _build.check(rc, "gram_mv_epilogue_f32")
+    return out, partials
+
+
+def mv_epilogue_cuda(
+    w: torch.Tensor, t: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+    noise_var: torch.Tensor, offsets: Tuple[int, ...],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2b once → (out (B, N), ⟨v, out⟩ (B,)). The kernel writes one
+    partial sum per (row, block) in a fixed order; one ``torch.sum`` adds the
+    blocks, so the dot is the same bits on every launch."""
+    out, partials = mv_epilogue_partials_cuda(w, t, mask, v, noise_var, offsets)
     return out, partials.sum(dim=1)
 
 

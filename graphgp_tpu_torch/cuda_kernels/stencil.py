@@ -32,7 +32,7 @@ from . import _build
 
 MAX_BATCH = 16
 MAX_OFFSETS = 256
-# The kernels' tiling (csrc/stencil.cu: tile_for, kPad, kMaxBandRows): a
+# The kernels' tiling (csrc/bands.cuh: tile_for, kPad, kMaxBandRows): a
 # block owns tile_for(B) columns; a band's window row holds the tile plus
 # WINDOW_PAD floats, room for its spread and the 16-byte copies' alignment
 # shift of up to 3.
@@ -111,12 +111,12 @@ class BandPlan:
         shared memory lets twice as many blocks share an SM."""
         return 256 if batch <= 12 else 128
 
-    def smem_bytes(self, batch: int, weights: bool = True) -> int:
+    def smem_bytes(self, batch: int, weights: bool = True, mask: bool = False) -> int:
         """Dynamic shared memory of one block at ``batch`` rows: two stages of
-        the (batch, tile + WINDOW_PAD) window (and, for the product,
-        ``band_rows`` rows of w), then the table."""
+        the (batch, tile + WINDOW_PAD) window (one more row for K2a's mask),
+        and for a product ``band_rows`` rows of w, then the table."""
         tile = self.tile(batch)
-        stage = batch * (tile + WINDOW_PAD) + (self.band_rows * tile if weights else 0)
+        stage = (batch + mask) * (tile + WINDOW_PAD) + (self.band_rows * tile if weights else 0)
         return 4 * (2 * stage + self.table.size)
 
 
@@ -141,15 +141,9 @@ def plan_bands(offsets: Sequence[int]) -> BandPlan:
 
 
 @lru_cache(maxsize=64)
-def _device_offsets(offsets: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    # Cached: a host-to-device copy per launch would stall the host on the
-    # stream's queued work. (K2's offset table.)
-    return torch.tensor(offsets, dtype=torch.int32, device=device)
-
-
-@lru_cache(maxsize=64)
 def _device_plan(offsets: Tuple[int, ...], device: torch.device):
-    # Cached for the same reason.
+    # Cached: a host-to-device copy per launch would stall the host on the
+    # stream's queued work. K1, dw, K2a and K2b all take their plans here.
     plan = plan_bands(offsets)
     return plan, torch.from_numpy(plan.table).to(device)
 

@@ -9,8 +9,9 @@ This file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: K1 sums S float32 terms with fma in another order than the
 plain roll chain (relative 1e-5 of max |ref|), dw B terms, and so do K2a
-and K2b; dw sums over b in a fixed order, so two launches are equal; K2b's
-fused dot is a float32 sum of N terms in another order (relative 1e-5); K3 places at most one entry
+and K2b; dw and K2b's partials sum in a fixed order, so two launches are
+equal; K2b's fused dot is a float32 sum of N terms in another order
+(relative 1e-5); K3 places at most one entry
 per output cell, so it is exact. K4 walks the plain version's walks bit for bit
 and differs in the order of up to W float32 additions per cell (shared-memory
 atomics) and in dividing by W after the sum, where the plain version adds W
@@ -300,6 +301,79 @@ def test_k2_kernels_match_plain(cuda, n, b):
     assert torch.equal(out, out2) and torch.equal(dot, dot2)
     off_mask = mask == 0
     assert torch.equal(out[:, off_mask], v[:, off_mask])
+
+
+def _k2_banded_check(w, v, offs, mask):
+    """K2a and K2b on one case, two launches each: against the plain
+    versions (relative 1e-5: fp32 sums of S terms, fma, another order; the
+    dot N terms), bit-identical repeats, exact identity rows, and one partial
+    per (row, block of BandPlan.tile(B) columns)."""
+    b, n = v.shape
+    neg = tuple(-o for o in offs)
+    w_shift = k1.shifted_weights(w, offs).contiguous()
+    nv = torch.tensor([0.3], device=v.device)
+    before = (k2.rmv_mask_launches, k2.mv_epilogue_launches)
+    t = k2.rmv_mask_cuda(w_shift, mask, v, neg)
+    t2 = k2.rmv_mask_cuda(w_shift, mask, v, neg)
+    out, part = k2.mv_epilogue_partials_cuda(w, t, mask, v, nv, offs)
+    out2, part2 = k2.mv_epilogue_partials_cuda(w, t, mask, v, nv, offs)
+    torch.cuda.synchronize()
+    assert (k2.rmv_mask_launches - before[0], k2.mv_epilogue_launches - before[1]) == (2, 2)
+    t_ref = k2.rmv_mask_plain(w_shift, mask, v, neg)
+    out_ref, dot_ref = k2.mv_epilogue_plain(w, t, mask, v, nv, offs)
+    assert _rel(t, t_ref) <= 1e-5
+    assert _rel(out, out_ref) <= 1e-5
+    assert float(((part.sum(dim=1) - dot_ref).abs() / dot_ref.abs()).max()) <= 1e-5
+    assert part.shape == (b, -(-n // k1.BandPlan.tile(b)))
+    assert torch.equal(t, t2) and torch.equal(out, out2) and torch.equal(part, part2)
+    off_mask = mask == 0
+    assert torch.equal(out[:, off_mask], v[:, off_mask])
+    return t, out, part
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_K1_CASES))
+def test_k2_banded_kernels_match_plain(cuda, name):
+    """K2a and K2b on K1's cases: the seam inside a tile, N not a multiple
+    of the tile (the tail adds zero to the partials), both copy widths,
+    S = 256, N below one tile, the flagship's offsets at N = 1e6."""
+    w, v, _, offs = _k1_case(name, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(v.shape[1])
+    mask = (torch.rand(v.shape[1], generator=gen, device=cuda) < 0.5).to(torch.float32)
+    _k2_banded_check(w, v, offs, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("odd", ["v", "mask"])
+def test_k2_kernels_take_unaligned_rows(cuda, odd):
+    """A state or a mask that does not start on 16 bytes takes the 4-byte
+    copies; N % 4 == 0 would otherwise pick 16."""
+    w, v, _, offs = _k1_case("n4096-s41-b5", cuda)
+    n = v.shape[1]
+    mask = (torch.arange(n, device=cuda) % 3 == 0).to(torch.float32)
+    x = v if odd == "v" else mask
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    x_odd = buf[1:].view(x.shape)
+    x_odd.copy_(x)
+    assert x_odd.is_contiguous() and x_odd.data_ptr() % 16 != 0 and n % 4 == 0
+    _k2_banded_check(w, x_odd if odd == "v" else v, offs, x_odd if odd == "mask" else mask)
+
+
+@pytest.mark.gpu
+def test_k2_dx_major_order_gives_the_sorted_bits(cuda):
+    """The planner sorts: the flagship's offsets in dx-major order, with the
+    weight rows in the same order, give the sorted order's t, out and
+    partials bit for bit."""
+    w, v, _, offs = _k1_case("flagship-b16", cuda)
+    mask = torch.zeros(v.shape[1], device=cuda)
+    mask[::2] = 1.0
+    dx_major = [dx + 1000 * dy for dx in range(-4, 5) for dy in range(-4, 5)
+                if abs(dx) + abs(dy) <= 4]
+    rows = [offs.index(o) for o in dx_major]
+    got = _k2_banded_check(w[rows].contiguous(), v, tuple(dx_major), mask)
+    ref = _k2_banded_check(w, v, offs, mask)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
