@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Kernel K4 (fused walks -> dense step matrices) alone, over shapes.
 
-For each shape: the kernel's own device time from torch.profiler (the mean of
-REPS launches), the wrapper's time from CUDA events around REPS back-to-back
-calls (at small shapes that is the host's launch path, not the kernel), the
-plain PyTorch version's time, and the kernel's largest difference from the
+For each shape: the kernels' own device time from torch.profiler (the mean
+duration of each kernel a launch runs, the table pack and the walks, over
+REPS launches, summed), the wrapper's time from CUDA events around REPS
+back-to-back calls (at small shapes that is the host's launch path, not the
+kernel), the plain PyTorch version's time, and the kernel's largest difference from the
 plain version relative to max |ref|. Shapes: the ablation protocol's mesh
 (both load updates), the PEMS sensor graph at 1 / 16 / 1024 walks per node,
-and a 64 x 64 grid at 64 and 8192 walks per node and at L = 16 (two
-shared-memory passes).
+and a 64 x 64 grid at 64 and 8192 walks per node and at L = 16.
 
 Usage: python3 benchmarks/torch_walker_sweep.py   (needs a CUDA card; run from the repo's root)
 """
@@ -62,8 +62,11 @@ def main() -> int:
             for _ in range(REPS):
                 run()
             torch.cuda.synchronize()
-        kernel_us = [e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and "walk_step_matrices" in e.name]
+        kernel_us = {}
+        for e in prof.events():
+            for kname in ("walk_step_matrices", "pack_walk_table"):
+                if e.device_type == DeviceType.CUDA and kname in e.name:
+                    kernel_us.setdefault(kname, []).append(e.time_range.elapsed_us())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(REPS):
@@ -75,10 +78,11 @@ def main() -> int:
         k4.sample_dense_step_matrices_plain(graph, 1, cfg)
         end.record()
         torch.cuda.synchronize()
-        kernel = f"{sum(kernel_us) / len(kernel_us) / 1e3:.4f}" if kernel_us else "not measured"
+        kernel = (f"{sum(sum(v) / len(v) for v in kernel_us.values()) / 1e3:.4f}"
+                  if kernel_us else "not measured")
         print(f"{name}: N={graph.num_nodes} D={graph.max_degree} W={cfg.walks_per_node} "
               f"L={cfg.max_walk_length} p_halt={cfg.p_halt}: kernel {kernel} ms "
-              f"({len(kernel_us)} launches profiled), wrapper {wrapper_ms:.4f} ms, plain "
+              f"({sum(map(len, kernel_us.values()))} kernels profiled in {REPS} launches), wrapper {wrapper_ms:.4f} ms, plain "
               f"{start.elapsed_time(end):.4f} ms, rel err {rel:.3e}", flush=True)
     return 0
 

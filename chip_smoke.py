@@ -9,7 +9,8 @@ paths' own tensors:
 
   1. prints the card's name and power limit, builds the kernels (one nvcc
      per source, in parallel) and prints ptxas's registers and spills of K1,
-     dw, K2a and K2b at B = 1, 8, 16;
+     dw, K2a and K2b at B = 1, 8, 16, of K3 (bulk and 4-byte copies) and of
+     K4 (both load updates, and its table pack);
   2. small-input agreement: a 30x30 grid through the card's path and the
      plain CPU path, same draws, same answers; then full-space prediction on
      a 256-node ring and a 15x15 grid, card against CPU;
@@ -48,7 +49,11 @@ paths' own tensors:
      the same script's default grid, N 900), K4's counter zeroed just before each
      and read just after; then K4 (fused walks -> dense step matrices)
      against its plain version at those shapes and at the edge of its regime
-     (N 4096, walks_per_node 8192, L 10).
+     (N 4096, walks_per_node 8192, L 10), its kernels' device time (calls
+     replayed from a CUDA graph, no host launch path) beside the wrapper's
+     (CUDA events around calls from the host), and its bound from
+     this run's walks, their integer work at the INT32 rate and their float
+     work at the FP32 rate.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -83,9 +88,12 @@ BO_SEED = 100
 DATA_SEED = 42
 
 # H100 SXM published peaks: HBM bytes/s and
-# fp32 (non-tensor-core) operations/s.
+# fp32 (non-tensor-core) operations/s (NVIDIA's data sheet); int32
+# operations/s: 64 INT32 lanes an SM (the Hopper architecture white paper,
+# against 128 FP32 lanes) x 132 SMs x the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 REL_TOL_K1 = 1e-5  # relative to max |ref|: fp32 sums of 41 terms in another order (fma)
 REL_TOL_K2 = 1e-5  # K2a/K2b: the same sums; the fused dot: N fp32 terms in another order
 
@@ -100,22 +108,36 @@ GRID_TRAIN_STEPS = 50        # ... at 200 L-BFGS steps per fit
 PEMS_NPZ = "processed_data/pems_bay.npz"
 # K4 against its plain version, relative to max |ref|: the walks are
 # bit-identical; each cell is a float32 sum of up to W loads. The kernel sums
-# (shared-memory atomics, in no fixed order) and divides by W once; the plain
+# (float atomics into the output, in no fixed order) and divides by W once; the plain
 # version adds W copies of fl(load / W) one after another, which leaves it up
 # to W * 2^-24 of the largest cell from the true sum in the worst case (6e-5
 # at W = 1000; 9.3e-6 was read at the ablation protocol's ad-hoc shape).
 REL_TOL_K4 = 3e-5
+# a kernel's time replayed from a CUDA graph against its wrapper's, read one
+# after the other
+ALONE_SLACK = 0.1
 # the transplant arm on the PEMS graph is Monte-Carlo-noise-limited (mean
 # degree 12: the per-step importance factors are large); the JAX package's
 # recorded runs on this graph read 11-19 times the pofm_diffusion RMSE at
 # walks_per_node 1024
 TRANSPLANT_MARGIN = 50.0
-# operations per walk step, counted from csrc/walker.cu: a transition that is
-# tried (degree load, one hashed uniform, the halt test), one that is taken
-# (the second uniform, the pick, two table loads, three multiplies, the
-# shared-memory add of the next record)
-K4_OPS_TRIED = 15
-K4_OPS_TAKEN = 27
+# The work K4's walks need, whatever kernel does it. A tried transition draws
+# one uniform (the halt test), a taken one a second (the pick). A uniform is
+# one splitmix32 mix of the per-block prefix and the walk index: an xor, the
+# mix's 2 multiplies, 3 shifts and 3 xors, and the shift that keeps 24 bits,
+# 10 integer operations; then a conversion and a scaling, 2 float ones. The
+# halt test is 1 float compare a tried transition. A taken transition clamps
+# its pick (2 integer operations) and converts the degree, multiplies, and
+# truncates (3 float ones), updates the load (3 float multiplies, none under
+# ablation) and adds its record at the next step (1 float add). Each output
+# element is divided by W once. The integer and the float pipes run side by
+# side, so the operations' time is the larger of the two.
+K4_INT_OPS_PER_UNIFORM = 10
+K4_INT_OPS_TAKEN = 2
+K4_FP_OPS_PER_UNIFORM = 2
+K4_FP_OPS_TRIED = 1
+K4_FP_OPS_TAKEN = 7
+K4_FP_OPS_TAKEN_ABLATION = 4
 
 
 def log(msg: str) -> None:
@@ -166,10 +188,49 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float, int_ops: float = 0.0) -> tuple:
+    """The least time for the work: the bytes at the HBM rate, or the float
+    operations at the FP32 rate, or the integer ones at the INT32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` without the host's launch path:
+    ``reps`` calls captured in one CUDA graph, replayed ``replays`` times
+    after a warm-up replay, each replay between CUDA events; the fastest
+    replay counts. The kernels' gaps inside the graph count, so this reads
+    at or above the kernels' own durations."""
+    import torch
+
+    fn()  # a wrapper's first call sets its kernels' attributes, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        reads.append(start.elapsed_time(end) / reps)
+    del graph
+    return min(reads)
+
+
+def check_alone(label: str, alone: float, wrapper: float) -> None:
+    """The calls replayed from a CUDA graph take no longer than the same calls
+    launched from the host (CUDA events around back-to-back calls), within
+    ALONE_SLACK: the two are read in separate runs."""
+    check(alone <= wrapper * (1.0 + ALONE_SLACK),
+          f"{label}: kernel alone {alone:.4f} ms above the wrapper's {wrapper:.4f} ms")
 
 
 def rel_err(out, ref) -> tuple:
@@ -957,34 +1018,67 @@ def k1_checks(device, flag: dict) -> list:
     return [k1_entry, dw_entry]
 
 
-def k3_check(device, flag: dict) -> dict:
+def _k3_measure(label: str, cols, vals, offsets: np.ndarray, device, stencil=None) -> dict:
+    """K3 on one ELL: equal bit for bit to its plain version (and to the
+    path's own ``stencil`` where given), its time beside the plain version's
+    and the bound."""
     import torch
 
     from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
 
-    feats, mats = flag["feats"], flag["mats"]
-    s, n = feats.mats.num_offsets, feats.num_nodes
-    cols, vals = mats.cols, mats.vals
-    off_t = torch.from_numpy(feats.mats.offsets).to(device)
-    out = k3.ell_to_stencil_cuda(cols, vals, off_t)
+    l, n, r = cols.shape
+    s = offsets.size
+    off_t = torch.from_numpy(offsets).to(device)
+    sched = k3.plan(n, r, s, k3.offsets_span(torch.from_numpy(offsets)),
+                    aligned=cols.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0)
+    out = k3.ell_to_stencil_cuda(cols, vals, off_t, sched)
     ref = k3.ell_to_stencil_plain(cols, vals, off_t)
-    check(torch.equal(out, ref), "K3 differs from its plain version")
-    check(torch.equal(out, feats.mats.vals), "K3 differs from the main path's stencil")
+    check(torch.equal(out, ref), f"K3 {label} differs from its plain version")
+    if stencil is not None:
+        check(torch.equal(out, stencil), f"K3 {label} differs from the path's stencil")
     err = float((out - ref).abs().max())
-    ms = cuda_ms(lambda: k3.ell_to_stencil_cuda(cols, vals, off_t), reps=5, warmup=1)
+    del out, ref
+    # the calls back to back: at a tenth of a millisecond and more a launch,
+    # the host's launch path hides behind the kernels
+    ms = cuda_ms(lambda: k3.ell_to_stencil_cuda(cols, vals, off_t, sched), reps=5, warmup=1)
     plain = cuda_ms(lambda: k3.ell_to_stencil_plain(cols, vals, off_t), reps=2, warmup=1)
-    l, _, r = cols.shape
     live = int((vals != 0).sum())
-    bnd, by = bound_ms(8.0 * l * n * r + 4.0 * l * s * n,
-                       live * (math.ceil(math.log2(max(s, 2))) + 2))
-    log(f"K3 ell_to_stencil L={l} N={n} R={r} S={s} ({live} live entries): {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); exactly equal")
+    # a live entry: its offset, the range test, one lookup (or the binary
+    # search's halvings) and the slot's add
+    lookups = 1 if sched.lookup else math.ceil(math.log2(max(s, 2)))
+    bnd, by = bound_ms(8.0 * l * n * r + 4.0 * l * s * n, live, int_ops=live * (lookups + 3))
+    log(f"K3 ell_to_stencil {label} L={l} N={n} R={r} S={s} ({live} live entries; {sched}): "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}, {bnd / ms:.2f} of it); "
+        f"exactly equal")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by}
+
+
+def k3_check(device, flag: dict) -> dict:
+    """K3 at the flagship's ELL (the kernels line's row), and at the scaling
+    path's largest ring, whose narrow rows take the other schedule."""
+    import torch
+
+    from graphgp_tpu_torch.data import synthetic
+    from graphgp_tpu_torch.preprocessor import preprocess_graph
+    from graphgp_tpu_torch.walker import WalkConfig
+
+    feats, mats = flag["feats"], flag["mats"]
+    row = _k3_measure("flagship", mats.cols, mats.vals, feats.mats.offsets, device,
+                      stencil=feats.mats.vals)
+    # the scaling path's top size at its defaults (walks_per_node 100, p_halt 0.1, L 3)
+    trace: dict = {}
+    ring = preprocess_graph(synthetic.generate("ring", SCALING_SIZES[-1], seed=DATA_SEED)
+                            ["adjacency"], WalkConfig(100, 0.1, 3), seed=DATA_SEED,
+                            cache_dir=None, layout="auto", device=device, trace=trace)
+    _k3_measure("scaling path's ring", trace["ell"].cols, trace["ell"].vals, ring.mats.offsets,
+                device, stencil=ring.mats.vals)
+    del ring, trace
+    torch.cuda.empty_cache()
     return {
         "name": "ell_to_stencil", "route": "cuda",
         "source": "graphgp_tpu_torch/csrc/stencil_build.cu",
         "replaces": "graphgp_tpu/pallas_kernels/stencil_build.py:73",
-        "launches": flag["launches"]["ell_to_stencil"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "launches": flag["launches"]["ell_to_stencil"], **row, "library_ms": None,
     }
 
 
@@ -1216,20 +1310,33 @@ def k4_check(label: str, graph, seed: int, cfg, reps: int, plain_reps: int) -> d
     repeat = ("bit-identical" if rep_err == 0.0 else
               f"max abs diff {rep_err:.3e} (rel {rep_rel:.3e}): float atomics, summation order")
     del again, ref
-    ms = cuda_ms(lambda: k4.sample_dense_step_matrices_cuda(graph, seed, cfg), reps=reps, warmup=1)
+    run = lambda: k4.sample_dense_step_matrices_cuda(graph, seed, cfg)
+    ms = cuda_ms(run, reps=reps, warmup=1)
+    alone = graph_ms(run, reps=reps)
+    check_alone(f"K4 {label}", alone, ms)
     plain = cuda_ms(lambda: k4.sample_dense_step_matrices_plain(graph, seed, cfg),
                     reps=plain_reps, warmup=1)
     tried, taken = _k4_live_steps(graph, seed, cfg)
     nbytes = 4.0 * (2 * n * d + n) + 4.0 * steps * n * n
-    ops = K4_OPS_TRIED * tried + K4_OPS_TAKEN * taken + 2.0 * steps * n * n
-    bnd, by = bound_ms(nbytes, ops)
+    uniforms = tried + taken
+    int_ops = K4_INT_OPS_PER_UNIFORM * uniforms + K4_INT_OPS_TAKEN * taken
+    fp_ops = (K4_FP_OPS_PER_UNIFORM * uniforms + K4_FP_OPS_TRIED * tried
+              + (K4_FP_OPS_TAKEN_ABLATION if cfg.ablation else K4_FP_OPS_TAKEN) * taken
+              + steps * n * n)
+    bnd, by = bound_ms(nbytes, fp_ops, int_ops)
     log(f"K4 walk_step_matrices {label} N={n} D={d} W={w} L={steps} p_halt={cfg.p_halt} "
-        f"ablation={cfg.ablation} ({k4.block_threads(w, k4.steps_per_pass(n, steps) * n)} threads a block, "
-        f"{-(-steps // k4.steps_per_pass(n, steps))} pass): {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {tried} transitions tried, {taken} taken, "
-        f"{ops:.3e} operations), {n * w * 1e3 / ms:,.0f} walks/s; max abs err {err:.3e} "
+        f"ablation={cfg.ablation} ({k4.block_threads(w, steps * n)} threads a block): kernel "
+        f"alone (graph replay) {alone:.4f} ms, wrapper {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bnd:.4f} ms "
+        f"({by}: {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {tried} transitions tried, {taken} taken, "
+        f"{int_ops:.3e} int32 operations at {INT32_OPS_PER_S / 1e12:.2f} T/s "
+        f"{int_ops / INT32_OPS_PER_S * 1e3:.4f} ms, {fp_ops:.3e} fp32 at "
+        f"{FP32_OPS_PER_S / 1e12:.0f} T/s {fp_ops / FP32_OPS_PER_S * 1e3:.4f} ms; kernel alone "
+        f"{bnd / alone:.2f} of it), {n * w * 1e3 / alone:,.0f} walks/s; max abs err {err:.3e} "
         f"(rel {rel:.3e}); M[0] == I exactly; second launch {repeat}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by}
+    return {"max_abs_err": err, "ms": alone, "wrapper_ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by}
 
 
 def k4_checks(device, launches: int) -> dict:
@@ -1252,9 +1359,10 @@ def k4_checks(device, launches: int) -> dict:
              WalkConfig(1, 0.1, 10), reps=20, plain_reps=3)
     big = synthetic.generate("grid", 4096, seed=0)["adjacency"]
     k4_check("edge of the regime, 64x64 grid", pack_laplacian(big).to(device), 7,
-             WalkConfig(8192, 0.1, 10), reps=3, plain_reps=1)
-    k4_check("two shared-memory passes, 64x64 grid", pack_laplacian(big).to(device), 7,
-             WalkConfig(256, 0.1, 16), reps=3, plain_reps=1)
+             WalkConfig(8192, 0.1, 10), reps=10, plain_reps=1)
+    k4_check("long walks, 64x64 grid", pack_laplacian(big).to(device), 7,
+             WalkConfig(256, 0.1, 16), reps=10, plain_reps=1)
+    del row["wrapper_ms"]
     return {"name": "walk_step_matrices", "route": "cuda",
             "source": "graphgp_tpu_torch/csrc/walker.cu",
             "replaces": "graphgp_tpu/pallas_kernels/walker.py:280",
@@ -1295,6 +1403,16 @@ def main() -> int:
             if hit:
                 log(f"  ptxas {kernel}<{b}>: {hit[0][0]} registers, spill stores {hit[0][1]} B, "
                     f"spill loads {hit[0][2]} B")
+    for kernel, flag, what in (("ell_to_stencil_kernel", "ILb0EE", "4-byte copies"),
+                               ("ell_to_stencil_kernel", "ILb1EE", "bulk copies"),
+                               ("ell_to_stencil_rows_kernel", "", "narrow rows"),
+                               ("walk_step_matrices_kernel", "ILb0EE", "principled"),
+                               ("walk_step_matrices_kernel", "ILb1EE", "ablation"),
+                               ("pack_walk_table_kernel", "", "")):
+        hit = [v for k, v in per_kernel.items() if kernel in k and flag in k]
+        if hit:
+            log(f"  ptxas {kernel}{f'<{what}>' if what else ''}: {hit[0][0]} registers, spill "
+                f"stores {hit[0][1]} B, spill loads {hit[0][2]} B")
 
     t0 = time.perf_counter()
     small_agreement(device)

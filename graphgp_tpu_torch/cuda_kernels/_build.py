@@ -10,6 +10,7 @@ edited file is rebuilt.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from typing import Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -67,7 +70,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stencil_matvec_f32.restype = i
     lib.stencil_dw_f32.argtypes = [p, p, p, p, i, i, i, ll, i, ll, p]
     lib.stencil_dw_f32.restype = i
-    lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, p]
+    lib.ell_to_stencil_f32.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, p]
     lib.ell_to_stencil_f32.restype = i
     lib.gram_rmv_mask_f32.argtypes = [p, p, p, p, p, i, i, i, i, ll, i, ll, p]
     lib.gram_rmv_mask_f32.restype = i
@@ -75,7 +78,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gram_mv_epilogue_f32.restype = i
     lib.gram_num_blocks.argtypes = [i, ll]
     lib.gram_num_blocks.restype = i
-    lib.walk_step_matrices_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, u32, u32, f32, f32, i, p]
+    lib.walk_step_matrices_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, u32, u32, f32, f32, i, p]
     lib.walk_step_matrices_f32.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
@@ -137,3 +140,17 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib.kernels_error_string(rc).decode() if _lib is not None else ""
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def on_device(device: torch.device):
+    """The CUDA runtime's current device set to ``device`` for a launch: a
+    no-op context when it already is (the common case, and the cheap one)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

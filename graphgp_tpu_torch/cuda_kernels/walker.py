@@ -8,10 +8,10 @@ walker of this package shares, as an (L, N, N) float32 tensor. Counterpart of
 ``csrc/walker.cu``.
 
 The kernel and the plain version walk the same walks bit for bit. They differ
-in the order of the float32 additions (the kernel adds into shared memory with
-atomics, so two launches may differ in the last bits too) and in one rounding:
-the kernel divides the sum by W at the end, the plain version divides each
-load by W before adding. Step 0 of the kernel is exactly the identity.
+in the order of the float32 additions (the kernel adds each record into the
+output with a float atomic, so two launches may differ in the last bits too)
+and in one rounding: the kernel divides the sum by W at the end, the plain
+version divides each load by W before adding. Step 0 of the kernel is exactly the identity.
 
 The one-hot MXU gathers, the base-64 digit table, the bf16 three-way split,
 the pooling matrix and the power-of-two walk block of the Pallas kernel are
@@ -34,31 +34,45 @@ MAX_NODES = 4096
 MAX_THREADS = 1024
 # Dynamic shared memory one block may ask for on sm_90 (227 KB).
 MAX_DYNAMIC_SMEM_BYTES = 232448
+# The packed table's 16-bit degree field.
+MAX_TABLE_WIDTH = 0xFFFF
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
 
 
-def steps_per_pass(num_nodes: int, max_walk_length: int) -> int:
-    """The most steps whose (steps, N) float32 accumulator fits a block's
-    shared memory beside the 2·L-word hash table. Longer walks take several
-    passes, each replaying the walk from step 0."""
-    room = MAX_DYNAMIC_SMEM_BYTES - 8 * max_walk_length
-    steps = min(room // (4 * num_nodes), max_walk_length)
-    if steps < 1:
+def shared_memory_bytes(max_walk_length: int) -> int:
+    """A block's dynamic shared memory: the hash prefix, two words for each
+    of the walk's steps (the step matrices themselves live in the output)."""
+    need = 8 * max_walk_length
+    if need > MAX_DYNAMIC_SMEM_BYTES:
         raise ValueError(
-            f"max_walk_length={max_walk_length} leaves no shared memory for one "
-            f"step's accumulator at N={num_nodes}"
+            f"max_walk_length={max_walk_length} needs {need} bytes of shared memory for the "
+            f"hash prefix; a block may have {MAX_DYNAMIC_SMEM_BYTES}"
         )
-    return steps
+    return need
 
 
 def block_threads(walks_per_node: int, cells: int) -> int:
     """Threads of a block, in whole warps, at most 1024: one per walk, and no
-    fewer than one per eight of the accumulator's ``cells`` (steps per pass ×
-    N), which every thread helps to zero and to write out."""
+    fewer than one per eight of the block's ``cells`` (L × N: its rows of the
+    output, which every thread helps to clear and to divide by W)."""
     want = max(walks_per_node, -(-cells // 8))
     return min(MAX_THREADS, max(32, -(-want // 32) * 32))
+
+
+def packed_table_plain(graph: PackedGraph) -> torch.Tensor:
+    """The (N, D, 2) int32 table the kernel packs before its walks, one
+    8-byte entry per (node, slot): word 0 holds the neighbour id in its low
+    16 bits and the neighbour's degree cut to [0, D] in its high 16, or
+    0xFFFF (degree 0) for an id outside [0, N); word 1 holds the weight's
+    bits."""
+    nb = graph.neighbors.to(torch.int64)
+    n, d = nb.shape
+    deg = graph.degree.to(torch.int64)[nb.clamp(0, n - 1)].clamp(0, d)
+    word = torch.where((nb >= 0) & (nb < n), nb | (deg << 16), 0xFFFF)
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+    return torch.stack([word, graph.weights.contiguous().view(torch.int32)], dim=-1)
 
 
 def sample_dense_step_matrices_plain(
@@ -107,8 +121,8 @@ def _check_graph(graph: PackedGraph) -> None:
             f"the fused dense walker supports N <= {MAX_NODES}; got {n}. "
             "Use the walk-log / ELL path (pipeline.blocked_ell_features) for larger graphs."
         )
-    if n < 1 or d < 1:
-        raise ValueError(f"sample_dense_step_matrices_cuda: empty graph table {(n, d)}")
+    if n < 1 or not 1 <= d <= MAX_TABLE_WIDTH:
+        raise ValueError(f"sample_dense_step_matrices_cuda: graph table {(n, d)} out of range")
 
 
 def sample_dense_step_matrices_cuda(graph: PackedGraph, seed: int, cfg: WalkConfig) -> torch.Tensor:
@@ -130,17 +144,17 @@ def sample_dense_step_matrices_cuda(graph: PackedGraph, seed: int, cfg: WalkConf
     out = torch.empty((steps, n, n), dtype=torch.float32, device=dev)
     if steps == 0:
         return out
-    per_pass = steps_per_pass(n, steps)
+    shared_memory_bytes(steps)
     k0, k1 = key_words(seed)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    table = torch.empty((n, d, 2), dtype=torch.int32, device=dev)  # packed by the launch
+    with _build.on_device(dev):
         rc = lib.walk_step_matrices_f32(
             graph.neighbors.data_ptr(), graph.weights.data_ptr(), graph.degree.data_ptr(),
-            out.data_ptr(), n, d, w, steps, per_pass, int(cfg.ablation), k0, k1,
+            table.data_ptr(), out.data_ptr(), n, d, w, steps, int(cfg.ablation), k0, k1,
             # both rounded once from double, as the plain version's float32 scalars
             ctypes.c_float(cfg.p_halt), ctypes.c_float(1.0 / (1.0 - cfg.p_halt)),
-            block_threads(w, per_pass * n), ctypes.c_void_p(stream),
+            block_threads(w, steps * n), _build.stream(dev),
         )
     launches += 1
     _build.check(rc, "walk_step_matrices_f32")

@@ -284,8 +284,7 @@ def ell_to_stencil(
     offsets = offset_vocabulary(mats, max_offsets, chunk_rows)
     if offsets is None:
         return None
-    off_t = torch.from_numpy(offsets).to(mats.cols.device)
-    vals = k_build.ell_to_stencil(mats.cols, mats.vals, off_t)
+    vals = k_build.ell_to_stencil(mats.cols, mats.vals, torch.from_numpy(offsets))
     return StencilStepMatrices(vals=vals, offsets=offsets)
 
 

@@ -267,6 +267,54 @@ def test_k3_kernel_equals_plain(cuda, l, n, r, s):
     assert torch.equal(out, ref)
 
 
+def _k3_inputs(l, n, r, s, seed, device, spread=None):
+    """Rows of distinct vocabulary offsets (drawn from ±spread), dead slots
+    and a few off-vocabulary entries, as test_k3_kernel_equals_plain makes."""
+    gen = np.random.default_rng(seed)
+    spread = spread or n - 1
+    vocab = np.sort(gen.choice(np.arange(-spread, spread + 1), s, replace=False))
+    k = min(r, s)
+    diffs = np.zeros((l * n, r), np.int64)
+    diffs[:, :k] = np.stack([gen.permutation(vocab)[:k] for _ in range(l * n)])
+    vals = gen.normal(size=(l * n, r)).astype(np.float32)
+    vals[:, k:] = 0.0
+    vals[gen.random((l * n, r)) < 0.3] = 0.0
+    stray = (gen.random((l * n, r)) < 0.03) & (vals != 0)
+    diffs[stray] = spread + 1  # off the vocabulary
+    cols = (np.arange(n)[None, :, None] + diffs.reshape(l, n, r)).astype(np.int32)
+    return (torch.from_numpy(cols).to(device), torch.from_numpy(vals.reshape(l, n, r)).to(device),
+            torch.from_numpy(vocab.astype(np.int32)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,n,r,s,spread,tile", [
+    (2, 1000, 5, 9, None, 32),           # N not a multiple of the tile, bulk copies
+    (2, 1001, 3, 11, None, None),        # N * R odd: 4-byte copies
+    (3, 777, 1, 5, None, None),          # one slot a row
+    (1, 300, 3, 256, None, None),        # 256 offsets
+    (1, 120, 200, 60, None, None),       # two chunks a tile
+    (2, 5000, 9, 17, 12_000, None),      # span 24001: the binary search
+    (5, 4099, 56, 41, 4004, None),       # the flagship's shape of row, a direct table
+])
+def test_k3_kernel_schedules_equal_plain(cuda, l, n, r, s, spread, tile):
+    """The planner's schedule, the staged one at any R (cut to ``tile`` nodes
+    where given) with the direct table and with the binary search, and the
+    narrow-row one at any R."""
+    cols, vals, offs = _k3_inputs(l, n, r, s, seed=n + r, device=cuda, spread=spread)
+    ref = k3.ell_to_stencil_plain(cols, vals, offs)
+    span = k3.offsets_span(offs)
+    staged = k3.staged_plan(n, r, s, span)
+    if tile is not None:
+        staged = staged._replace(tile=tile, chunk=tile * r)
+    assert staged.bulk == ((n * r) % 4 == 0)
+    assert (staged.lookup > 0) == (span <= k3.MAX_LOOKUP_ENTRIES)
+    narrow = k3.Plan(False, k3.NODE_THREADS, 0, False, 0)
+    for sched in (k3.plan(n, r, s, span), staged, staged._replace(lookup=0), narrow):
+        out = k3.ell_to_stencil_cuda(cols, vals, offs, schedule=sched)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), sched
+
+
 def _gram_inputs(n, b, s, seed, device):
     w, offs = _random_stencil(n, s, seed=seed, big_offsets=True)
     offs_c = tuple(k1.center_offsets(offs, n).tolist())
@@ -454,14 +502,29 @@ def test_k4_kernel_matches_plain(cuda, n, w, steps, ablation):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,steps,passes", [(4096, 16, 2), (4096, 30, 3), (2500, 24, 2)])
-def test_k4_kernel_long_walks_take_several_passes(cuda, n, steps, passes):
-    """L·N floats above a block's 227 KB of shared memory: the kernel works
-    through groups of steps, replaying the walk for each."""
-    assert -(-steps // k4.steps_per_pass(n, steps)) == passes
+@pytest.mark.parametrize("n,steps", [(4096, 16), (4096, 30), (2500, 24)])
+def test_k4_kernel_long_walks_take_several_passes(cuda, n, steps):
+    """L·N floats above a block's 227 KB of shared memory, which once took
+    several passes over the steps: the step matrices live in the output and
+    the block's shared memory holds only the hash prefix, so one launch
+    takes any walk length."""
+    assert 4 * steps * n > k4.MAX_DYNAMIC_SMEM_BYTES
     graph = pack_laplacian(synthetic.generate("grid", n, seed=2)["adjacency"]).to(cuda)
     cfg = WalkConfig(walks_per_node=40, p_halt=0.02, max_walk_length=steps)
     _k4_check(graph, 11, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w,threads", [(4096, 1000, None), (324, 1, None), (900, 33, 32),
+                                         (900, 1000, 256)])
+def test_k4_kernel_block_sizes_and_the_edge_of_the_regime(cuda, n, w, threads, monkeypatch):
+    """N = 4096 at the planner's block; blocks of fewer threads than walks, so
+    each thread walks several walks one after another (W = 33 on one warp,
+    1000 on 256 threads)."""
+    if threads is not None:
+        monkeypatch.setattr(k4, "block_threads", lambda walks, cells: threads)
+    graph = pack_laplacian(synthetic.generate("grid", n, seed=4)["adjacency"]).to(cuda)
+    _k4_check(graph, 13, WalkConfig(walks_per_node=w, p_halt=0.1, max_walk_length=10))
 
 
 @pytest.mark.gpu

@@ -1,8 +1,8 @@
 """K4's plain PyTorch version (``cuda_kernels/walker.py``) against the JAX
 package: the Pallas walk kernel in interpret mode, as
 ``tests/test_pallas_walker.py`` runs it, and the XLA gather walker; and the
-Python around the CUDA kernel that a CPU can reach (the shared-memory plan,
-the block size, the wrapper's refusals).
+Python around the CUDA kernel that a CPU can reach (the shared memory a
+block asks for, the block size, the wrapper's refusals).
 
 Tolerances: every walker draws the same walks bit for bit, so results differ
 only in the order of the float32 additions. Against the gather walker that is
@@ -112,24 +112,23 @@ def test_plain_isolated_node_halts_at_once():
 
 
 @pytest.mark.parametrize("n,steps,want", [
-    (900, 10, 10),      # the ablation protocol: 36 KB, one pass
-    (4096, 10, 10),     # 160 KB: above the 48 KB default, below the 227 KB a block may have
-    (4096, 14, 14),
-    (4096, 16, 14),     # 256 KB would not fit: two passes
-    (4096, 100, 14),
-    (64, 500, 500),
+    (900, 10, 80),      # the ablation protocol: the hash prefix alone, 8 bytes a step
+    (4096, 10, 80),     # the (L, N) step matrices live in the output, not in shared memory
+    (4096, 14, 112),
+    (4096, 16, 128),    # one launch, however long the walk
+    (4096, 100, 800),
+    (64, 500, 4000),
 ])
 def test_steps_per_pass_fits_shared_memory(n, steps, want):
-    got = k4.steps_per_pass(n, steps)
+    got = k4.shared_memory_bytes(steps)
     assert got == want
-    assert 4 * got * n + 8 * steps <= k4.MAX_DYNAMIC_SMEM_BYTES
-    if got < steps:  # one more step would not fit
-        assert 4 * (got + 1) * n + 8 * steps > k4.MAX_DYNAMIC_SMEM_BYTES
+    assert got <= k4.MAX_DYNAMIC_SMEM_BYTES
+    assert k4.block_threads(1, steps * n) <= k4.MAX_THREADS
 
 
 def test_steps_per_pass_refuses_a_table_that_leaves_no_room():
     with pytest.raises(ValueError, match="shared memory"):
-        k4.steps_per_pass(4096, 28_000)
+        k4.shared_memory_bytes(30_000)
 
 
 @pytest.mark.parametrize("wpn,cells,want", [
