@@ -2,8 +2,9 @@
 """GPU smoke test of the PyTorch/CUDA port (graphgp_tpu_torch).
 
 Drives the port's main paths on one CUDA card, the million-node GRF-Thompson
-BO flagship, the scaling experiment with full-space prediction and the
-dense-regime protocols (ablation and traffic regression), and holds each
+BO flagship, the scaling experiment with full-space prediction, the
+dense-regime protocols (ablation and traffic regression) and GRF-Thompson on
+the shipped facebook graph, and holds each
 hand-written kernel of those paths against its plain PyTorch version on the
 paths' own tensors:
 
@@ -53,7 +54,23 @@ paths' own tensors:
      replayed from a CUDA graph, no host launch path) beside the wrapper's
      (CUDA events around calls from the host), and its bound from
      this run's walks, their integer work at the INT32 rate and their float
-     work at the FP32 rate.
+     work at the FP32 rate;
+  9. GRF-Thompson on the shipped facebook graph (N 22470, skewed degrees:
+     the walks take the CSR layout, the features ELL with its column-sorted
+     transpose; no kernel of this package runs there): first, card against
+     CPU on the real graph, the walks of the first 4096 start nodes at
+     walks_per_node 16 (bit for bit), the transpose of their ELL built on
+     the card (equal) and its two products (float32 order; each twice on
+     the card, bit for bit); then graphgp_tpu_torch.cli.bo.main at the JAX
+     CPU record's settings (20 iterations, walks_per_node 500, p_halt 0.1,
+     L 5, batch 1, 10 initial points, 30 epochs, retrain every 10, cg_tol
+     1e-2, gaussianized targets, BO seeds 100 and 110), caches in a
+     temporary directory: the layout, R, the ELL's and the transpose's bytes,
+     peak memory, preprocessing seconds by phase, fit and draw seconds and
+     products per BO iteration, each seed's regret beside the record's
+     1.4654 (finite, never rising, ending at or below its first), and the
+     ELL forward and transposed products' ms at B = 1 and 16 (the fit's
+     widths) beside their byte bounds, each twice bit for bit.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -62,8 +79,9 @@ TRAIN_EPOCHS Adam epochs (the reference protocol runs 50 x 30); DENSE_SEEDS
 seed of the ablation and traffic protocols (they run 3), ABLATION_TRAIN_STEPS
 optimizer steps per ablation fit (of 1000), and the default-grid traffic run at
 the walks GRID_WALKS and GRID_TRAIN_STEPS L-BFGS steps (of 200); the traffic
-protocol on the PEMS graph runs its full sweep at its own 200 steps. Widths
-are the protocols' own.
+protocol on the PEMS graph runs its full sweep at its own 200 steps. The
+facebook cell runs uncut (FB_ITERATIONS iterations, both of FB_SEEDS).
+Widths are the protocols' own.
 """
 from __future__ import annotations
 
@@ -138,6 +156,19 @@ K4_FP_OPS_PER_UNIFORM = 2
 K4_FP_OPS_TRIED = 1
 K4_FP_OPS_TAKEN = 7
 K4_FP_OPS_TAKEN_ABLATION = 4
+
+# The facebook BO cell (the JAX package's only BO run on a real graph, the CPU
+# record artifacts/results/bo_facebook_cpu/): its seeds, its final regret,
+# and the card-against-CPU check's start nodes and walks
+FB_ITERATIONS = 20
+FB_SEEDS = (100, 110)
+FB_REGRET_JAX_CPU = 1.4654
+FB_CHECK_NODES = 4096
+FB_CHECK_WPN = 16
+FB_PROBES = 16  # the fit's batch width: the SLQ probes
+# the ELL products, card against CPU, relative to max |ref|: float32 sums of
+# up to R (or 128, then a column's virtual rows) terms in another order
+REL_TOL_FB = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1369,6 +1400,209 @@ def k4_checks(device, launches: int) -> dict:
             "launches": launches, **row, "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: GRF-Thompson on the shipped facebook graph (CSR walks, ELL with
+# its column-sorted transpose, ContractedFeatures; no kernel of this package)
+# ---------------------------------------------------------------------------
+
+
+def _fb_product_bounds(feats, b: int) -> tuple:
+    """Byte bounds (ms) of the ELL forward and the transposed product at
+    batch b: every array each reads once and its output written once. The
+    forward reads the padded (L, N, R) cols and vals; the transposed product
+    the used virtual rows' rows and vals and the (L, Nt + 1) pointers."""
+    from graphgp_tpu_torch.features import CSC_BLOCK
+
+    mats, csc = feats.mats, feats.csc
+    l, n, r = mats.cols.shape
+    nt = mats.num_target_nodes
+    fwd = 4 * (2 * l * n * r + b * nt + b * n)
+    tra = 8 * CSC_BLOCK * sum(csc.used_vrows) + 8 * csc.vrow_ptr.numel() + 4 * b * (n + nt)
+    return bound_ms(fwd, 0.0)[0], bound_ms(tra, 0.0)[0]
+
+
+def _fb_card_against_cpu(adj, device) -> None:
+    """Walks over the first FB_CHECK_NODES start nodes, card against CPU (bit
+    for bit); the same ELL's transpose built on the card against the CPU's
+    (equal); its two products on the card against the CPU (float32 order)
+    and against themselves (bit for bit)."""
+    import torch
+
+    from graphgp_tpu_torch import features as tfeat
+    from graphgp_tpu_torch import graphs as tgraphs
+    from graphgp_tpu_torch import walker as twalker
+
+    cfg = twalker.WalkConfig(FB_CHECK_WPN, P_HALT, MAX_WALK_LENGTH)
+    graph = tgraphs.pack_laplacian(adj)
+    cpu = twalker.sample_walk_log(graph, DATA_SEED, cfg, num_start_nodes=FB_CHECK_NODES)
+    card = twalker.sample_walk_log(graph.to(device), DATA_SEED, cfg, num_start_nodes=FB_CHECK_NODES)
+    check(torch.equal(card.curs.cpu(), cpu.curs) and torch.equal(card.loads.cpu(), cpu.loads),
+          "facebook: walks on the card differ from the CPU's")
+    mats = tfeat.consolidate(cpu, tfeat.suggest_row_capacity(cpu), num_target_nodes=graph.num_nodes,
+                             walks_per_node=FB_CHECK_WPN)
+    host = tfeat.with_transpose(tfeat.EllFeatures(mats))
+    on_card = tfeat.EllFeatures(mats.to(device), tfeat.transpose_ell(mats.to(device)))
+    for name in ("rows", "vals", "seg_start", "last_pos", "has_any", "vrow_ptr"):
+        check(torch.equal(getattr(on_card.csc, name).cpu(), getattr(host.csc, name)),
+              f"facebook: the transpose's {name} built on the card differs from the CPU's")
+    f = torch.tensor([1.0, 0.7, -0.4, 0.25, 0.1])
+    gen = torch.Generator().manual_seed(0)
+    errs = []
+    for op, width in (("matvec_bm", host.num_target_nodes), ("rmatvec_bm", host.num_nodes)):
+        for b in (1, FB_PROBES):
+            v = torch.randn((b, width), generator=gen)
+            first = getattr(on_card, op)(f.to(device), v.to(device))
+            second = getattr(on_card, op)(f.to(device), v.to(device))
+            check(torch.equal(first, second),
+                  f"facebook: {op} at B={b} does not repeat on the card")
+            _, rel = rel_err(first.cpu(), getattr(host, op)(f, v))
+            errs.append(rel)
+            check(rel <= REL_TOL_FB, f"facebook: {op} at B={b}, card against CPU {rel:.2e}")
+    log(f"facebook card against CPU: walks of the first {FB_CHECK_NODES} start nodes at wpn "
+        f"{FB_CHECK_WPN} bit-identical; transpose equal; products (B = 1, {FB_PROBES}) repeat bit "
+        f"for bit, against the CPU max rel {max(errs):.2e} (tolerance {REL_TOL_FB:.0e}); "
+        f"ELL R={mats.row_capacity}")
+
+
+def facebook_path(device) -> None:
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch import features as tfeat
+    from graphgp_tpu_torch import graphs as tgraphs
+    from graphgp_tpu_torch import preprocessor
+    from graphgp_tpu_torch.cli import bo as cli_bo
+    from graphgp_tpu_torch.data.database import GraphDataLoader
+
+    log(f"facebook BO: the JAX CPU record's settings (20 iterations, wpn 500, p_halt 0.1, L 5, "
+        f"batch 1, 10 initial points, 30 epochs, retrain every 10, cg_tol 1e-2, gaussianized "
+        f"targets, walk seed 42); depth cut: {FB_ITERATIONS} iterations, BO seeds {FB_SEEDS} "
+        f"(the record: 20 iterations, seeds 100 and 110)")
+    saved_root = os.environ.get("GRAPHGP_DATA_ROOT")
+    counts = {"forward": 0, "transposed": 0}
+    originals = (preprocessor.preprocess_graph, cli_bo.make_algorithm,
+                 tfeat.ell_phi_matvec_bm, tfeat.csc_phi_rmatvec_bm)
+    trace: dict = {}
+    captured: dict = {"algos": [], "per_iteration": []}
+
+    def traced_preprocess(*args, **kwargs):
+        captured["feats"] = originals[0](*args, trace=trace, **kwargs)
+        return captured["feats"]
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def make_algorithm(*args, **kwargs):
+        algo = originals[1](*args, **kwargs)
+        select = algo.select_next_points
+
+        def counted_select(*a, **k):
+            before = counts["forward"] + counts["transposed"]
+            picked = select(*a, **k)
+            captured["per_iteration"].append(counts["forward"] + counts["transposed"] - before)
+            return picked
+
+        algo.select_next_points = counted_select
+        captured["algos"].append(algo)
+        return algo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "raw")
+        os.makedirs(root)
+        os.environ["GRAPHGP_DATA_ROOT"] = root
+        try:
+            data = GraphDataLoader(cache_dir="processed_data")("facebook")
+            adj = data["adjacency"]
+            graph = tgraphs.pack_laplacian(adj)
+            log(f"facebook graph: N={adj.shape[0]}, nnz={adj.nnz}, largest degree "
+                f"{int(np.diff(adj.indptr).max())}; walk layout {type(graph).__name__} "
+                f"({graph.nnz} Laplacian entries)")
+            check(isinstance(graph, tgraphs.CsrGraph), "facebook: the graph did not pack as CSR")
+            t0 = time.perf_counter()
+            _fb_card_against_cpu(adj, device)
+            log(f"facebook card-against-CPU checks: {time.perf_counter() - t0:.2f} s")
+
+            preprocessor.preprocess_graph = traced_preprocess
+            cli_bo.make_algorithm = make_algorithm
+            tfeat.ell_phi_matvec_bm = counted("forward", originals[2])
+            tfeat.csc_phi_rmatvec_bm = counted("transposed", originals[3])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            records = cli_bo.main([
+                "--graph-type", "facebook", "--algorithms", "grf_thompson",
+                "--iterations", str(FB_ITERATIONS), "--bo-seeds", *map(str, FB_SEEDS),
+                "--walks-per-node", "500", "--p-halt", str(P_HALT),
+                "--max-walk-length", str(MAX_WALK_LENGTH), "--batch-size", "1",
+                "--initial-points", "10", "--train-epochs", "30", "--gp-retrain-interval", "10",
+                "--cg-tol", "1e-2", "--gaussianize", "--seed", str(DATA_SEED),
+                "--device", str(device), "--results-dir", os.path.join(tmp, "results"),
+                "--cache-dir", os.path.join(tmp, "step_matrices"),
+            ])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        finally:
+            (preprocessor.preprocess_graph, cli_bo.make_algorithm,
+             tfeat.ell_phi_matvec_bm, tfeat.csc_phi_rmatvec_bm) = originals
+            if saved_root is None:
+                os.environ.pop("GRAPHGP_DATA_ROOT", None)
+            else:
+                os.environ["GRAPHGP_DATA_ROOT"] = saved_root
+
+    feats = captured["feats"]
+    mats, csc = feats.mats, feats.csc
+    check(isinstance(feats, tfeat.EllFeatures) and csc is not None,
+          f"facebook: layout {type(feats).__name__} without the transpose")
+    check(mats.cols.is_cuda and csc.rows.is_cuda, "facebook: the features are not on the card")
+    ell_mb = (mats.cols.numel() * 4 + mats.vals.numel() * 4) / 1e6
+    log(f"facebook layout: EllFeatures with the column-sorted transpose; L={mats.max_walk_length}, "
+        f"R={mats.row_capacity}, live entries {int(mats.nnz())}; ELL {ell_mb:.1f} MB, transpose "
+        f"{csc.nbytes() / 1e6:.1f} MB (used virtual rows {list(csc.used_vrows)})")
+    log(f"facebook preprocessing: walk+consolidate {trace['walk_consolidate_s']:.3f} s, offset "
+        f"scan {trace['vocabulary_s']:.3f} s, transpose {trace['transpose_s']:.3f} s (on the card)")
+    per_iteration = captured["per_iteration"]
+    for seed, algo in zip(FB_SEEDS, captured["algos"]):
+        fits, draws = algo.phase_seconds["fit"], algo.phase_seconds["draw"]
+        log(f"facebook seed {seed}: fit s {[round(x, 3) for x in fits]} ({len(fits)} fits of 30 "
+            f"epochs), draw s {[round(x, 3) for x in draws]}")
+    log(f"facebook products (forward + transposed) per BO iteration: {per_iteration}; in all "
+        f"{counts}")
+    log(f"facebook BO total: {total_s:.2f} s (with preprocessing and the drivers' I/O); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for seed in FB_SEEDS:
+        regret = np.asarray([r["regret"] for r in records if r["seed"] == seed])
+        log(f"facebook seed {seed}: regret {regret.round(4).tolist()}; final {regret[-1]:.4f} "
+            f"(the JAX CPU record: {FB_REGRET_JAX_CPU})")
+        check(regret.size == FB_ITERATIONS, f"facebook seed {seed}: {regret.size} records")
+        check(bool(np.isfinite(regret).all()), f"facebook seed {seed}: regret not finite")
+        check(bool(np.all(np.diff(regret) <= 0)), f"facebook seed {seed}: regret increased")
+        check(regret[-1] <= regret[0], f"facebook seed {seed}: regret ended above its first")
+    check(counts["forward"] > 0 and counts["transposed"] > 0,
+          "facebook: the ELL products did not run on the main path")
+
+    f = torch.tensor([1.0, 0.7, -0.4, 0.25, 0.1], device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for b in (1, FB_PROBES):
+        v_t = torch.randn((b, mats.num_target_nodes), device=device, generator=gen)
+        v_s = torch.randn((b, mats.num_nodes), device=device, generator=gen)
+        fwd_ms = cuda_ms(lambda: tfeat.ell_phi_matvec_bm(mats, f, v_t), reps=10)
+        tra_ms = cuda_ms(lambda: tfeat.csc_phi_rmatvec_bm(csc, f, v_s), reps=10)
+        fwd_bound, tra_bound = _fb_product_bounds(feats, b)
+        same = (torch.equal(tfeat.ell_phi_matvec_bm(mats, f, v_t),
+                            tfeat.ell_phi_matvec_bm(mats, f, v_t))
+                and torch.equal(tfeat.csc_phi_rmatvec_bm(csc, f, v_s),
+                                tfeat.csc_phi_rmatvec_bm(csc, f, v_s)))
+        check(same, f"facebook: a product at B={b} does not repeat bit for bit")
+        log(f"facebook products at B={b}: ELL forward {fwd_ms:.4f} ms (byte bound "
+            f"{fwd_bound:.4f} ms), transposed through the transpose {tra_ms:.4f} ms (byte bound "
+            f"{tra_bound:.4f} ms); repeat bit for bit")
+
+
 def main() -> int:
     import torch
 
@@ -1450,6 +1684,10 @@ def main() -> int:
     t0 = time.perf_counter()
     k4_row = k4_checks(device, k4_launches)
     log(f"K4 checks and timings: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    facebook_path(device)
+    log(f"facebook path: {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row, dw_row]
 
     log(card)

@@ -10,9 +10,11 @@ PyTorch version (``cuda_kernels/``). Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
-from .features import DenseFeatures, EllFeatures, StencilFeatures, ell_to_stencil
+from .features import DenseFeatures, EllFeatures, StencilFeatures, ell_to_stencil, with_transpose
 from .graphs import (
+    CsrGraph,
     PackedGraph,
+    csr_graph,
     normalized_laplacian,
     normalized_laplacian_csr,
     pack_csr,

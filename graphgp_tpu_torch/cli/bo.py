@@ -1,12 +1,19 @@
-"""Bayesian-optimization driver: algorithm × seed sweep on synthetic graphs.
+"""Bayesian-optimization driver: algorithm × seed sweep on synthetic graphs
+and on datasets.
 
-Counterpart of ``graphgp_tpu/cli/bo.py`` for the synthetic graph types. A
-failing cell raises: there is no retry with another implementation and no
-error row that hides a failure.
+Counterpart of ``graphgp_tpu/cli/bo.py``. ``--graph-type`` / ``--datasets``
+take a synthetic generator's name or a dataset of
+``data.database.GraphDataLoader``, read from its cache under
+``processed_data/`` (``facebook`` ships there); the loader needs the
+directory of raw files, which ``GRAPHGP_DATA_ROOT`` names and which must
+exist. A failing cell raises: there is no retry with another implementation
+and no error row that hides a failure.
 
 Usage:
     python -m graphgp_tpu_torch.cli.bo --graph-type grid --n-nodes 1000000 \
         --algorithms random_search grf_thompson --iterations 50 --batch-size 100
+    GRAPHGP_DATA_ROOT=<an existing directory> python -m graphgp_tpu_torch.cli.bo \
+        --graph-type facebook --algorithms grf_thompson --walks-per-node 500 --gaussianize
 """
 from __future__ import annotations
 
@@ -48,11 +55,28 @@ def make_algorithm(name, data, feats, args, rng):
     raise ValueError(f"unknown algorithm {name!r}")
 
 
+def load_graph(graph_type: str, n_nodes: int, seed: int) -> Dict:
+    """A synthetic graph by generator name, else a dataset by registry name."""
+    from ..data import synthetic
+    from ..data.database import GraphDataLoader
+
+    if graph_type in synthetic.GENERATORS:
+        return synthetic.generate(graph_type, n_nodes, seed=seed)
+    loader = GraphDataLoader()
+    if graph_type not in loader.registry:
+        raise ValueError(
+            f"unknown graph type {graph_type!r}; synthetic generators: "
+            f"{sorted(synthetic.GENERATORS)}; datasets: {loader.available()}"
+        )
+    return loader(graph_type)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--graph-type", default="grid", help="synthetic generator name")
+    p.add_argument("--graph-type", default="grid",
+                   help="synthetic generator or dataset name")
     p.add_argument("--datasets", nargs="+", default=None,
-                   help="sweep several synthetic graph types (overrides --graph-type)")
+                   help="sweep several graph types (overrides --graph-type)")
     p.add_argument("--n-nodes", type=int, default=1024)
     p.add_argument("--algorithms", nargs="+",
                    default=["random_search", "bfs", "dfs", "greedy_search", "grf_thompson"])
@@ -83,7 +107,6 @@ def main(argv=None) -> List[Dict]:
     args = build_parser().parse_args(argv)
 
     from ..bo import run_optimization
-    from ..data import synthetic
     from ..devices import resolve_device
     from ..preprocessor import preprocess_graph
     from ..utils.io import print_summary, save_results
@@ -95,12 +118,7 @@ def main(argv=None) -> List[Dict]:
     needs_gp = "grf_thompson" in args.algorithms
     all_records: List[Dict] = []
     for graph_type in targets:
-        if graph_type not in synthetic.GENERATORS:
-            raise ValueError(
-                f"unknown graph type {graph_type!r}; synthetic generators: "
-                f"{sorted(synthetic.GENERATORS)} (dataset loaders are not ported yet)"
-            )
-        data = synthetic.generate(graph_type, args.n_nodes, seed=args.seed)
+        data = load_graph(graph_type, args.n_nodes, args.seed)
         objective = data["y_observed"].astype(np.float32)
         if args.gaussianize:
             objective = gaussianize(objective)

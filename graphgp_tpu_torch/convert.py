@@ -11,7 +11,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .features import DenseFeatures, EllStepMatrices, StencilStepMatrices
+from .features import (
+    CSC_FIELDS,
+    CscStepMatrices,
+    DenseFeatures,
+    EllFeatures,
+    EllStepMatrices,
+    StencilStepMatrices,
+)
 from .gp.spectral import Eigenbasis
 
 PARAM_NAMES = ("raw_noise", "modulator", "raw_beta", "raw_sigma_f")
@@ -43,6 +50,27 @@ def ell_from_numpy(
         vals=torch.from_numpy(vals.astype(np.float32)).to(device),
         num_target_nodes=int(num_target_nodes),
     )
+
+
+def ell_features_from_jax(
+    cols: np.ndarray, vals: np.ndarray, num_target_nodes: int, csc=None, device="cpu"
+) -> EllFeatures:
+    """ELL features from the JAX package's (L, N, R) step matrices and,
+    optionally, their column-sorted transpose: an object with the fields
+    ``rows``, ``vals``, ``seg_start``, ``last_pos``, ``has_any`` (the JAX
+    package's ``CscStepMatrices``) or a mapping of them (its ``.csc.npz``)."""
+    mats = ell_from_numpy(cols, vals, num_target_nodes, device)
+    if csc is None:
+        return EllFeatures(mats)
+    get = csc.__getitem__ if hasattr(csc, "keys") else lambda k: getattr(csc, k)
+    parts = [np.array(get(k)) for k in CSC_FIELDS]
+    steps_cols = (mats.max_walk_length, int(num_target_nodes))
+    if parts[0].shape != parts[1].shape or parts[3].shape != steps_cols:
+        raise ValueError(
+            f"transpose rows {parts[0].shape}, vals {parts[1].shape}, last_pos "
+            f"{parts[3].shape} do not match the ELL {tuple(mats.cols.shape)}"
+        )
+    return EllFeatures(mats, CscStepMatrices(*(torch.from_numpy(p).to(device) for p in parts)))
 
 
 def stencil_from_numpy(vals: np.ndarray, offsets: np.ndarray, device="cpu") -> StencilStepMatrices:

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..graphs import PackedGraph
+from ..graphs import CsrGraph, PackedGraph
 from ..walker import WalkConfig, dense_step_matrices, key_words, sample_walk_log
 from . import _build
 
@@ -99,6 +99,12 @@ def sample_dense_step_matrices_plain(
 
 
 def _check_graph(graph: PackedGraph) -> None:
+    if isinstance(graph, CsrGraph):
+        raise ValueError(
+            "sample_dense_step_matrices_cuda: K4 walks the fixed-width ELL table of a "
+            "PackedGraph; a CsrGraph (skewed degrees) takes the gather walker "
+            "(sample_dense_step_matrices_plain)"
+        )
     nb, wt, deg = graph.neighbors, graph.weights, graph.degree
     if not (nb.is_cuda and wt.is_cuda and deg.is_cuda):
         raise ValueError("sample_dense_step_matrices_cuda: the graph must lie on a CUDA device")

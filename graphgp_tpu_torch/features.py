@@ -1,23 +1,31 @@
 """Step-matrix feature layouts: dense, ELL-consolidated and stencil.
 
-Counterpart of the ELL-consolidation and stencil parts of
+Counterpart of the ELL, transpose and stencil parts of
 ``graphgp_tpu/features.py``:
 
 * :class:`DenseFeatures`: dense (L, N, Nt) step matrices, the small-N regime
   of the exact GP; :func:`ell_to_dense` builds them from ELL.
 * :class:`EllStepMatrices`: per-row deduplicated (cols, vals) step matrices
   with a fixed row capacity, built from a walk log by one sort and a
-  segment sum (:func:`consolidate`).
+  segment sum (:func:`consolidate`). :class:`EllFeatures` is the layout of
+  unstructured large graphs: its forward products sum each row's gathered
+  entries of the vector, one step at a time.
+* :class:`CscStepMatrices`: the column-sorted transpose of the ELL
+  (:func:`transpose_ell`, attached by :func:`with_transpose`). With it the
+  transposed product gathers too and reduces each column in a fixed order,
+  so no product of an unstructured graph scatters: on CUDA a scatter-add
+  adds floats by atomics in no fixed order, and two calls would differ.
 * :class:`StencilStepMatrices`: on structured graphs (grid, ring, torus) every
   live ``col − row`` difference lies in a small global vocabulary of
   offsets, so ``M_l[i, i + off_s] = vals[l, s, i]`` and every product is a
   sum of shifted elementwise products. :func:`ell_to_stencil` converts with
   kernel K3.
-* :class:`ContractedStencil`: the modulator folded into ``w (S, N)`` once per
-  solve; its products are kernel K1.
+* :func:`contract` binds the modulator: :class:`ContractedStencil` folds it
+  into ``w (S, N)`` once per solve (its products are kernel K1);
+  :class:`ContractedFeatures` binds it to an ELL or dense layout.
 
-The ELL products and the column-sorted transpose (the layouts of
-unstructured graphs) are not ported yet: ROADMAP Queue 1 item 12.
+The ELL and transposed products are plain PyTorch operations on every
+device: the JAX package computes them in XLA, with no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -36,7 +44,13 @@ from .walker import WalkLog
 # so the row capacity counts only distinct columns with nonzero mass.
 DEAD_COL = 2**31 - 1
 
-_ITEM_12 = "not ported yet (ROADMAP Queue 1 item 12: layouts for unstructured graphs)"
+
+
+def _f32(f, device) -> torch.Tensor:
+    """The modulator as float32 on ``device``, keeping its autograd graph."""
+    if isinstance(f, torch.Tensor):
+        return f.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(f, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,25 +122,8 @@ class EllStepMatrices:
     def nnz(self) -> torch.Tensor:
         return (self.vals != 0).sum()
 
-
-@dataclasses.dataclass(frozen=True)
-class EllFeatures:
-    """ELL step matrices as a feature layout. Its Φ products (gathers and
-    scatters over ELL rows) are not ported yet: ROADMAP Queue 1 item 12."""
-
-    mats: EllStepMatrices
-
-    @property
-    def num_nodes(self) -> int:
-        return self.mats.num_nodes
-
-    @property
-    def num_target_nodes(self) -> int:
-        return self.mats.num_target_nodes
-
-    @property
-    def max_walk_length(self) -> int:
-        return self.mats.max_walk_length
+    def to(self, device) -> "EllStepMatrices":
+        return EllStepMatrices(self.cols.to(device), self.vals.to(device), self.num_target_nodes)
 
 
 def _sorted_rows(cols: torch.Tensor, vals: torch.Tensor, w: int):
@@ -217,6 +214,399 @@ def consolidate(
     wpn = walks_per_node or w
     cols, vals, _ = _consolidate_rows(log.curs, log.loads / wpn, capacity)
     return EllStepMatrices(cols=cols, vals=vals, num_target_nodes=nt)
+
+
+# ---------------------------------------------------------------------------
+# ELL products. Batch-major: matvec_bm(f, V) = V Φᵀ, (B, Nt) → (B, N);
+# rmatvec_bm(f, V) = V Φ, (B, N) → (B, Nt).
+# ---------------------------------------------------------------------------
+
+
+def _bag_sums(idx: torch.Tensor, w: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
+    """``Σ_k w[j, k] · vt[idx[j, k]]`` for each row j of (J, K) int32 ``idx``
+    and float32 ``w``: (J, B) from vt (rows, B). One ``embedding_bag``: each
+    row's K products are summed in order, with no gathered transient and no
+    atomics, so two calls give the same bits."""
+    return torch.nn.functional.embedding_bag(idx, vt, per_sample_weights=w, mode="sum")
+
+
+def ell_phi_matvec_bm(mats: EllStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φᵀ`` over ELL step matrices: (B, Nt) → (B, N). One pass over
+    each step's rows; nothing of size (N, R, B) is materialized."""
+    f = _f32(modulator, v.device)
+    vt = v.T.contiguous()
+    acc = torch.zeros((mats.num_nodes, v.shape[0]), dtype=torch.float32, device=v.device)
+    for l in range(mats.max_walk_length):
+        acc = acc + f[l] * _bag_sums(mats.cols[l], mats.vals[l], vt)
+    return acc.T.contiguous()
+
+
+def ell_phi_rmatvec_bm(mats: EllStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φ`` by a scatter-add per step: (B, N) → (B, Nt). On CUDA the
+    adds are float atomics in no fixed order; :func:`csc_phi_rmatvec_bm`
+    computes the same product without a scatter."""
+    f = _f32(modulator, v.device)
+    b = v.shape[0]
+    acc = torch.zeros((b, mats.num_target_nodes), dtype=torch.float32, device=v.device)
+    for l in range(mats.max_walk_length):
+        contrib = (f[l] * mats.vals[l])[None, :, :] * v[:, :, None]  # (B, N, R)
+        acc = acc.index_add(1, mats.cols[l].reshape(-1), contrib.reshape(b, -1))
+    return acc
+
+
+def ell_phi_rows(mats: EllStepMatrices, modulator, rows: torch.Tensor) -> torch.Tensor:
+    """Dense ``Φ[rows, :]`` (R, Nt). One index-add per step: within a step a
+    row's columns are distinct (padded slots add 0 to column 0), so the
+    result does not depend on the order of the adds."""
+    dev = mats.cols.device
+    f = _f32(modulator, dev)
+    rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+    r, nt = rows.shape[0], mats.num_target_nodes
+    row_ix = torch.arange(r, device=dev)[:, None] * nt
+    out = torch.zeros(r * nt, dtype=torch.float32, device=dev)
+    for l in range(mats.max_walk_length):
+        flat = (row_ix + mats.cols[l, rows].to(torch.int64)).reshape(-1)
+        out = out.index_add(0, flat, (f[l] * mats.vals[l, rows]).reshape(-1))
+    return out.reshape(r, nt)
+
+
+# ---------------------------------------------------------------------------
+# The column-sorted transpose: Φᵀ products of unstructured graphs without a
+# scatter. Each step's live entries are sorted by column and each column's
+# run is padded to whole "virtual rows" of CSC_BLOCK entries, so a hub column
+# costs its entry count, where a transposed ELL would pad every column to the
+# largest one. The product gathers, sums each virtual row densely, then sums
+# each column's virtual rows in order.
+# ---------------------------------------------------------------------------
+
+# The JAX package's virtual-row geometry (its 128-lane width) and chunking;
+# they fix the layout of the ``.csc.npz`` sidecar both packages read.
+CSC_BLOCK = 128
+CSC_VROW_CHUNK = 1 << 15
+# The stored fields of CscStepMatrices, as the sidecar names them.
+CSC_FIELDS = ("rows", "vals", "seg_start", "last_pos", "has_any")
+
+
+def column_vrow_pointers(last_pos: torch.Tensor, has_any: torch.Tensor) -> torch.Tensor:
+    """(L, Nt + 1) int64: column c's virtual rows are ``ptr[l, c] ≤ j <
+    ptr[l, c + 1]``. A column's rows follow the previous live column's, so
+    ``ptr[l, c + 1]`` is one past the last row of the last live column ≤ c."""
+    ends = torch.where(has_any, last_pos.to(torch.int64) + 1, 0)
+    ends = torch.cummax(ends, dim=-1).values
+    return torch.nn.functional.pad(ends, (1, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class CscStepMatrices:
+    """Per-step transposed step matrices in virtual-row layout (the JAX
+    package's fields, shapes and dtypes, as its ``.csc.npz`` sidecar holds them).
+
+    rows: int32 (L, C, Vc, 128), source (start) node of each entry (pad 0).
+    vals: float32 (L, C, Vc, 128), ``M_l[row, col]`` (pad entries 0).
+    seg_start: bool (L, C, Vc), the virtual row opens a new column.
+    last_pos: int32 (L, Nt), global index of column c's last virtual row
+        (0 if none).
+    has_any: bool (L, Nt), column c has a live entry.
+
+    Derived on construction (and kept by :meth:`to`): ``vrow_ptr``, each
+    column's range of virtual rows (:func:`column_vrow_pointers`), and
+    ``used_vrows``, each step's count of virtual rows before the chunk
+    padding (one read from the device).
+    """
+
+    rows: torch.Tensor
+    vals: torch.Tensor
+    seg_start: torch.Tensor
+    last_pos: torch.Tensor
+    has_any: torch.Tensor
+    vrow_ptr: Optional[torch.Tensor] = None
+    used_vrows: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.vrow_ptr is None:
+            object.__setattr__(
+                self, "vrow_ptr", column_vrow_pointers(self.last_pos, self.has_any)
+            )
+        if self.used_vrows is None:
+            object.__setattr__(self, "used_vrows", tuple(self.vrow_ptr[:, -1].tolist()))
+
+    @property
+    def max_walk_length(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def num_target_nodes(self) -> int:
+        return self.last_pos.shape[1]
+
+    @property
+    def vrow_chunk(self) -> int:
+        return self.seg_start.shape[2]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.rows, self.vals, self.seg_start, self.last_pos, self.has_any, self.vrow_ptr))
+
+    def to(self, device) -> "CscStepMatrices":
+        return CscStepMatrices(
+            *(t.to(device) for t in (
+                self.rows, self.vals, self.seg_start, self.last_pos, self.has_any, self.vrow_ptr)),
+            used_vrows=self.used_vrows,
+        )
+
+
+def segmented_sum_scan(z: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive within-segment prefix sum along the last axis: z (..., E),
+    seg_start bool (E,) marking segment openers. Hillis–Steele shifted adds
+    with flag propagation, as the JAX package's; log2(E) passes, and no sum
+    crosses a segment. (:func:`csc_phi_rmatvec_bm` reduces each column with
+    one segment sum instead.)"""
+    e = z.shape[-1]
+    s, flag = z, seg_start.clone()
+    d = 1
+    while d < e:
+        shifted = torch.nn.functional.pad(s, (d, 0))[..., :e]
+        f_sh = torch.nn.functional.pad(flag, (d, 0), value=True)[:e]
+        s = torch.where(flag, s, s + shifted)
+        flag = flag | f_sh
+        d *= 2
+    return s
+
+
+def _ceil_mult(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, 0) - x
+
+
+def transpose_ell(mats: EllStepMatrices) -> CscStepMatrices:
+    """One-time build of the virtual-row column transpose, on the ELL's device
+    (cache it with the step matrices: the preprocessor writes the
+    ``.csc.npz`` sidecar). Per step: a stable sort of the live entries by
+    column, each column's run padded to a multiple of CSC_BLOCK, the entries
+    put into their (virtual row, lane) slots. Every array equals the JAX
+    package's (integer work and copies only)."""
+    l, n, r = mats.cols.shape
+    nt = mats.num_target_nodes
+    blk = CSC_BLOCK
+    dev = mats.cols.device
+    row_ix = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(r)
+    per_step = []
+    for li in range(l):
+        v = mats.vals[li].reshape(-1)
+        live = v != 0.0
+        c_l, order = torch.sort(mats.cols[li].reshape(-1)[live], stable=True)
+        v_l = v[live][order]
+        r_l = row_ix[live][order]
+        uniq, counts = torch.unique_consecutive(c_l, return_counts=True)
+        padded = (counts + blk - 1) // blk * blk
+        bases = _exclusive_cumsum(padded)
+        dest = (
+            torch.repeat_interleave(bases - _exclusive_cumsum(counts), counts)
+            + torch.arange(c_l.numel(), device=dev)
+        )
+        total = max(int(padded.sum()), blk)
+        rows_o = torch.zeros(total, dtype=torch.int32, device=dev)
+        vals_o = torch.zeros(total, dtype=torch.float32, device=dev)
+        rows_o[dest] = r_l
+        vals_o[dest] = v_l
+        seg = torch.zeros(total // blk, dtype=torch.bool, device=dev)
+        seg[0] = True
+        vbases = bases // blk
+        seg[vbases] = True
+        uniq = uniq.to(torch.int64)
+        has = torch.zeros(nt, dtype=torch.bool, device=dev)
+        has[uniq] = True
+        last = torch.zeros(nt, dtype=torch.int32, device=dev)
+        last[uniq] = (vbases + padded // blk - 1).to(torch.int32)
+        per_step.append((rows_o, vals_o, seg, last, has))
+
+    vmax = max(p[2].numel() for p in per_step)
+    vc = min(CSC_VROW_CHUNK, 1 << (vmax - 1).bit_length() if vmax > 1 else 1)
+    v_tot = _ceil_mult(vmax, vc)
+    rows_all = torch.zeros((l, v_tot * blk), dtype=torch.int32, device=dev)
+    vals_all = torch.zeros((l, v_tot * blk), dtype=torch.float32, device=dev)
+    seg_all = torch.zeros((l, v_tot), dtype=torch.bool, device=dev)
+    for li, (rows_o, vals_o, seg, _, _) in enumerate(per_step):
+        rows_all[li, : rows_o.numel()] = rows_o
+        vals_all[li, : vals_o.numel()] = vals_o
+        seg_all[li, : seg.numel()] = seg
+    shape = (l, v_tot // vc, vc)
+    return CscStepMatrices(
+        rows=rows_all.reshape(*shape, blk),
+        vals=vals_all.reshape(*shape, blk),
+        seg_start=seg_all.reshape(shape),
+        last_pos=torch.stack([p[3] for p in per_step]),
+        has_any=torch.stack([p[4] for p in per_step]),
+    )
+
+
+def csc_phi_rmatvec_bm(csc: CscStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φ`` through the column-sorted transpose: (B, Nsrc) → (B, Nt).
+
+    Per step, over the used virtual rows: each virtual row's 128 products
+    summed in order (:func:`_bag_sums`), then each column's virtual rows
+    summed in order by one segment sum. No scatter and no atomics: two calls
+    on the same input give the same bits.
+    """
+    f = _f32(modulator, v.device)
+    vt = v.T.contiguous()
+    blk = CSC_BLOCK
+    acc = torch.zeros((csc.num_target_nodes, v.shape[0]), dtype=torch.float32, device=v.device)
+    for l in range(csc.max_walk_length):
+        used = csc.used_vrows[l]
+        rows_l = csc.rows[l].reshape(-1, blk)[:used]
+        vals_l = csc.vals[l].reshape(-1, blk)[:used]
+        partial = _bag_sums(rows_l, vals_l, vt)  # (V, B)
+        acc = acc + f[l] * torch.segment_reduce(partial, "sum", offsets=csc.vrow_ptr[l], axis=0)
+    return acc.T.contiguous()
+
+
+def csc_phi_rmatvec(csc: CscStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``Φᵀ @ v`` through the transpose; v (Nsrc,) → (Nt,)."""
+    return csc_phi_rmatvec_bm(csc, modulator, v[None, :])[0]
+
+
+# ---------------------------------------------------------------------------
+# Analytic transposes. The products are linear in (f, v); each declares its
+# adjoint as the opposite-direction product in its best layout:
+#
+#     d/dv [V Φᵀ] · G = G Φ      (the transposed product: CSC, no scatter)
+#     d/dv [V Φ]  · G = G Φᵀ     (the forward product: ELL gathers)
+#     d/df_l          = ⟨A, B M_lᵀ⟩ per step (one gather and a dot)
+#
+# The step matrices are fixed Monte-Carlo samples: gradients go to the
+# modulator and the vector only, and asking for one through the step-matrix
+# values raises.
+# ---------------------------------------------------------------------------
+
+
+def _ell_df(mats: EllStepMatrices, a: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """``df_l = Σ_{b,i} a[b, i] · (bb M_lᵀ)[b, i]``, the modulator cotangent
+    of both products."""
+    bt = bb.T.contiguous()
+    at = a.T
+    return torch.stack([
+        (at * _bag_sums(mats.cols[l], mats.vals[l], bt)).sum()
+        for l in range(mats.max_walk_length)
+    ])
+
+
+def _rmatvec_bm(mats: EllStepMatrices, csc: Optional[CscStepMatrices], f, v):
+    if csc is not None:
+        return csc_phi_rmatvec_bm(csc, f, v)
+    return ell_phi_rmatvec_bm(mats, f, v)
+
+
+def _assert_unperturbed(mats: EllStepMatrices, csc: Optional[CscStepMatrices]) -> None:
+    """Fail loudly if a caller differentiates through step-matrix values:
+    the products' backward rules give gradients to (modulator, vector)
+    only, so such a caller would silently get none."""
+    if not torch.is_grad_enabled():
+        return
+    if mats.vals.requires_grad or (csc is not None and csc.vals.requires_grad):
+        raise ValueError(
+            "differentiating through ELL/CSC step-matrix values is unsupported: the "
+            "ELL/CSC products declare analytic transposes only for (modulator, vector); "
+            "detach the step matrices or differentiate the dense layout instead"
+        )
+
+
+class _EllMatvecBm(torch.autograd.Function):
+    """``V Φᵀ`` (B, Nt) → (B, N) with its analytic transpose."""
+
+    @staticmethod
+    def forward(ctx, f, v, mats, csc):
+        ctx.mats, ctx.csc = mats, csc
+        ctx.save_for_backward(f, v)
+        return ell_phi_matvec_bm(mats, f, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, v = ctx.saved_tensors
+        df = _ell_df(ctx.mats, g, v) if ctx.needs_input_grad[0] else None
+        dv = _rmatvec_bm(ctx.mats, ctx.csc, f, g) if ctx.needs_input_grad[1] else None
+        return df, dv, None, None
+
+
+class _EllRmatvecBm(torch.autograd.Function):
+    """``V Φ`` (B, N) → (B, Nt) with its analytic transpose."""
+
+    @staticmethod
+    def forward(ctx, f, v, mats, csc):
+        ctx.mats, ctx.csc = mats, csc
+        ctx.save_for_backward(f, v)
+        return _rmatvec_bm(mats, csc, f, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, v = ctx.saved_tensors
+        df = _ell_df(ctx.mats, v, g) if ctx.needs_input_grad[0] else None
+        dv = ell_phi_matvec_bm(ctx.mats, f, g) if ctx.needs_input_grad[1] else None
+        return df, dv, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class EllFeatures:
+    """Φ over consolidated ELL step matrices: the large-N layout of
+    unstructured graphs.
+
+    With ``csc`` (the column-sorted transpose, :func:`with_transpose`)
+    attached, the transposed products gather and never scatter; without it
+    they scatter-add, as the JAX package's do.
+    """
+
+    mats: EllStepMatrices
+    csc: Optional[CscStepMatrices] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return self.mats.num_nodes
+
+    @property
+    def num_target_nodes(self) -> int:
+        return self.mats.num_target_nodes
+
+    @property
+    def max_walk_length(self) -> int:
+        return self.mats.max_walk_length
+
+    def _f(self, f) -> torch.Tensor:
+        return _f32(f, self.mats.cols.device)
+
+    def matvec_bm(self, f, v):
+        _assert_unperturbed(self.mats, self.csc)
+        return _EllMatvecBm.apply(self._f(f), v, self.mats, self.csc)
+
+    def rmatvec_bm(self, f, v):
+        _assert_unperturbed(self.mats, self.csc)
+        return _EllRmatvecBm.apply(self._f(f), v, self.mats, self.csc)
+
+    def matvec(self, f, v):
+        """``Φ @ v``; v (Nt,) or column-major (Nt, B)."""
+        if v.dim() == 1:
+            return self.matvec_bm(f, v[None, :])[0]
+        return self.matvec_bm(f, v.T).T
+
+    def rmatvec(self, f, v):
+        """``Φᵀ @ v``; v (N,) or column-major (N, B)."""
+        if v.dim() == 1:
+            return self.rmatvec_bm(f, v[None, :])[0]
+        return self.rmatvec_bm(f, v.T).T
+
+    def rows(self, f, idx):
+        return ell_phi_rows(self.mats, self._f(f), idx)
+
+    def to(self, device) -> "EllFeatures":
+        return EllFeatures(self.mats.to(device), None if self.csc is None else self.csc.to(device))
+
+
+def with_transpose(feats: EllFeatures) -> EllFeatures:
+    """Attach the column-sorted transpose (one sort per step; cacheable)."""
+    if feats.csc is not None:
+        return feats
+    return EllFeatures(feats.mats, transpose_ell(feats.mats))
 
 
 # ---------------------------------------------------------------------------
@@ -361,15 +751,50 @@ class ContractedStencil:
         return out.reshape(r, n)
 
 
-def contract(feats, f: torch.Tensor) -> ContractedStencil:
-    """Fold the modulator into the stencil operator, once per solve."""
-    if not isinstance(feats, StencilFeatures):
-        raise NotImplementedError(f"contract() on {type(feats).__name__}: {_ITEM_12}")
-    vals = feats.mats.vals
-    w = torch.einsum("l,lsn->sn", f.to(device=vals.device, dtype=torch.float32), vals)
-    offsets = feats.mats.offsets
-    w_shift = k_stencil.shifted_weights(w, k_stencil.center_offsets(offsets, w.shape[1]))
-    return ContractedStencil(w=w, w_shift=w_shift, offsets=offsets)
+@dataclasses.dataclass(frozen=True)
+class ContractedFeatures:
+    """The modulator bound to a layout whose products cannot pre-fold it
+    (ELL, dense): the same surface as :class:`ContractedStencil`, so solver
+    carries do not depend on the layout. ``f`` is a direct tensor field, so
+    the solvers' adjoints (which flatten a carry one level deep) give it its
+    gradient; the step matrices inside ``feats`` stay fixed."""
+
+    feats: object
+    f: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.feats.num_nodes
+
+    @property
+    def num_target_nodes(self) -> int:
+        return self.feats.num_target_nodes
+
+    def matvec_bm(self, v):
+        return self.feats.matvec_bm(self.f, v)
+
+    def rmatvec_bm(self, v):
+        return self.feats.rmatvec_bm(self.f, v)
+
+    def rows(self, idx):
+        return self.feats.rows(self.f, idx)
+
+
+def contract(feats, f: torch.Tensor):
+    """Fold the modulator into the feature operator, once per solve:
+    StencilFeatures → ContractedStencil (w precomputed; products by K1);
+    EllFeatures and DenseFeatures → ContractedFeatures (a binding)."""
+    if isinstance(feats, StencilFeatures):
+        vals = feats.mats.vals
+        w = torch.einsum("l,lsn->sn", _f32(f, vals.device), vals)
+        offsets = feats.mats.offsets
+        w_shift = k_stencil.shifted_weights(w, k_stencil.center_offsets(offsets, w.shape[1]))
+        return ContractedStencil(w=w, w_shift=w_shift, offsets=offsets)
+    if isinstance(feats, EllFeatures):
+        return ContractedFeatures(feats, _f32(f, feats.mats.cols.device))
+    if isinstance(feats, DenseFeatures):
+        return ContractedFeatures(feats, _f32(f, feats.step_matrices.device))
+    raise TypeError(f"contract(): no feature layout {type(feats).__name__}")
 
 
 def ell_to_dense(mats: EllStepMatrices) -> torch.Tensor:

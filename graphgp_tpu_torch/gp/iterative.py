@@ -22,7 +22,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..cuda_kernels import gram
-from ..features import contract
+from ..features import ContractedStencil, contract
 from ..linalg import batched_cg, cg_solve, rademacher_probes, slq_logdet
 from . import params as P
 
@@ -214,11 +214,12 @@ def pathwise_predict(
     standard-normal draws (ε₂ is scaled by the noise std here); by default
     they come from ``generator``.
 
-    ``full_space=True``: the residual solve runs in the full node space
-    through the fused masked-Gram CG (kernel K2): no gather or scatter per
-    iteration, the fast path when the train set is a sizable fraction of the
-    graph. Requires distinct live train node ids (masked slots may repeat
-    node 0 with value 0).
+    ``full_space=True``: the residual solve runs in the full node space,
+    on a stencil layout through the fused masked-Gram CG (kernel K2): no
+    gather or scatter per iteration, the fast path when the train set is a
+    sizable fraction of the graph; on the ELL and dense layouts through
+    ``batched_cg``. Requires distinct live train node ids (masked slots may
+    repeat node 0 with value 0).
     """
     dev = y.device
     f = P.modulator(kind, params, feats.max_walk_length)
@@ -237,11 +238,20 @@ def pathwise_predict(
     if mask is not None:
         # padded residuals are zeroed, so their solution components stay 0
         b = b * mask[None, :]
-    if full_space:
+    if full_space and isinstance(phi, ContractedStencil):
         live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
         v_full = _fused_gram_solve_bm(
             phi, noise_var, _node_mask(train_idx, live, n), _expand_add(b, train_idx, n), settings
         )
+    elif full_space:
+        # the ELL and dense layouts have no fused solve: the same operator
+        # through batched_cg, as the JAX package routes them
+        live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
+        carry = (phi, noise_var, _node_mask(train_idx, live, n))
+        v_full = batched_cg(
+            make_gram_matvec_bm_full(), carry, _expand_add(b, train_idx, n),
+            tol=settings.cg_tol, max_iters=settings.cg_max_iters,
+        ).x
     else:
         if mask is None:
             matvec = make_gram_matvec_bm()

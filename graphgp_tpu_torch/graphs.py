@@ -1,9 +1,12 @@
-"""Graph packing: the normalized Laplacian as an ELL neighbour table.
+"""Graph packing: the normalized Laplacian as a neighbour table.
 
-Counterpart of ``graphgp_tpu/graphs.py``. The walk engine reads fixed-width
-``neighbors`` / ``weights`` rows padded to the largest row degree, so every
-walk step is a pair of gathers. Packing runs on the host (numpy / scipy);
-:meth:`PackedGraph.to` moves the tables to the device that walks them.
+Counterpart of ``graphgp_tpu/graphs.py``. The walk engine reads either
+fixed-width ELL ``neighbors`` / ``weights`` rows padded to the largest row
+degree (:class:`PackedGraph`), or, for skewed degree distributions whose ELL
+padding would waste more than 4x the edges, the exact nonzeros in CSR order
+(:class:`CsrGraph`). Either way every walk step is a few gathers. Packing runs
+on the host (numpy / scipy); ``.to(device)`` moves the tables to the device
+that walks them.
 
 ``L = I - D^{-1/2} A D^{-1/2}`` with zero-degree rows guarded, as the JAX
 package builds it. Sparse inputs (every synthetic BO graph) go through numpy
@@ -79,6 +82,65 @@ class PackedGraph:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CsrGraph:
+    """CSR-packed weighted graph for skewed degree distributions: exactly nnz
+    edges, where ELL would pad every row to the largest degree.
+
+    node_table: int32 (N, 2), ``[row_start, degree]`` of each node.
+    neighbors: int32 (nnz,), column ids in row order.
+    weights: float32 (nnz,), matching weights.
+
+    The JAX package stores the neighbour ids as float32 in one (nnz, 2) edge
+    table (exact below 2^24 nodes); here they stay int32, the same walk.
+    """
+
+    node_table: torch.Tensor
+    neighbors: torch.Tensor
+    weights: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_table.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def degree(self) -> torch.Tensor:
+        return self.node_table[:, 1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.node_table.device
+
+    def to(self, device) -> "CsrGraph":
+        return CsrGraph(
+            self.node_table.to(device), self.neighbors.to(device), self.weights.to(device)
+        )
+
+
+def csr_graph(csr) -> CsrGraph:
+    """Build a CsrGraph from a scipy CSR matrix (host-side)."""
+    csr = csr.tocsr()
+    csr.eliminate_zeros()
+    n = csr.shape[0]
+    if n >= (1 << 24):
+        raise ValueError(
+            "CsrGraph keeps the JAX package's limit of 2^24 nodes (its edge table "
+            f"holds neighbour ids as float32); got {n} nodes"
+        )
+    indptr = np.asarray(csr.indptr)
+    deg = np.diff(indptr).astype(np.int32)
+    node_table = np.stack([indptr[:-1].astype(np.int32), deg], axis=1)
+    return CsrGraph(
+        torch.from_numpy(node_table),
+        torch.from_numpy(csr.indices.astype(np.int32)),
+        torch.from_numpy(csr.data.astype(np.float32)),
+    )
+
+
 def _packed(neighbors, weights, deg) -> PackedGraph:
     return PackedGraph(
         torch.from_numpy(neighbors), torch.from_numpy(weights), torch.from_numpy(deg)
@@ -120,28 +182,29 @@ def pack_csr(csr, pad_degree_to: int = 1) -> PackedGraph:
     return _packed(neighbors, weights, deg)
 
 
-def pack_laplacian(adj, pad_degree_to: int = 1, layout: str = "auto") -> PackedGraph:
-    """Normalized Laplacian of ``adj`` (dense or scipy sparse) packed as ELL.
+def pack_laplacian(adj, pad_degree_to: int = 1, layout: str = "auto"):
+    """Normalized Laplacian of ``adj`` (dense or scipy sparse), packed for
+    walking.
 
-    ``layout`` is ``"ell"``, or ``"auto"``, which packs as ELL whenever the
-    padding stays within 4x the edge count (every synthetic BO graph does).
-    The CSR walk layout for skewed degrees is not ported yet and raises.
+    ``layout`` is ``"ell"`` (fixed-width rows), ``"csr"`` (exact nnz, for
+    skewed degrees) or ``"auto"``: CSR when a sparse input's ELL padding would
+    waste more than 4x the edge memory, else ELL. Dense inputs take ELL unless
+    ``"csr"`` is asked for.
     """
     if layout not in ("ell", "auto", "csr"):
-        raise ValueError(f"unknown layout {layout!r}; expected 'ell' or 'auto'")
+        raise ValueError(f"unknown layout {layout!r}; expected 'ell', 'csr' or 'auto'")
     if sp.issparse(adj):
         lap = normalized_laplacian_csr(adj)
-        deg = np.diff(lap.indptr)
-        padding_waste = int(deg.max(initial=1)) * lap.shape[0] / max(lap.nnz, 1)
-        if layout == "auto" and padding_waste > 4 and lap.shape[0] < (1 << 24):
-            layout = "csr"
-    if layout == "csr":
-        raise NotImplementedError(
-            "the CSR walk layout for skewed-degree graphs is not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
-    if sp.issparse(adj):
+        if layout == "csr":
+            return csr_graph(lap)
+        if layout == "auto":
+            deg = np.diff(lap.indptr)
+            padding_waste = int(deg.max(initial=1)) * lap.shape[0] / max(lap.nnz, 1)
+            if padding_waste > 4 and lap.shape[0] < (1 << 24):
+                return csr_graph(lap)
         return pack_csr(lap, pad_degree_to=pad_degree_to)
     lap = normalized_laplacian(np.asarray(adj)).numpy()
     lap[np.abs(lap) < 1e-12] = 0.0
+    if layout == "csr":
+        return csr_graph(sp.csr_matrix(lap))
     return pack_dense(lap, pad_degree_to=pad_degree_to)

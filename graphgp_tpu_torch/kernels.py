@@ -6,7 +6,9 @@ default, raising without a card; "cpu" for the plain PyTorch path).
 
 :func:`step_matrices_for_adjacency` is where the dense regime meets kernel K4
 (``cuda_kernels/walker.py``): on a CUDA device, ``method="auto"`` launches it
-for every graph of at most 4096 nodes.
+for every ELL-packed graph of at most 4096 nodes. Skewed-degree graphs pack
+as :class:`~graphgp_tpu_torch.graphs.CsrGraph` and take the gather walker,
+as in the JAX package: K4's neighbour table is the fixed-width ELL layout.
 """
 from __future__ import annotations
 
@@ -29,9 +31,9 @@ def _dense_adjacency(adj, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(dense, dtype=np.float32)).to(device)
 
 
-def _walk_graph(adj, ablation: bool) -> PackedGraph:
-    """The matrix the walks run on: the normalized Laplacian, or under
-    ``ablation`` the raw adjacency."""
+def _walk_graph(adj, ablation: bool):
+    """The matrix the walks run on: the normalized Laplacian (ELL, or CSR for
+    skewed degrees), or under ``ablation`` the raw adjacency (ELL)."""
     if ablation:
         return pack_dense(adj.toarray() if sp.issparse(adj) else np.asarray(adj))
     return pack_laplacian(adj)
@@ -53,9 +55,10 @@ def step_matrices_for_adjacency(
     ``load = weight``.
 
     method: "auto" takes the fused CUDA walk kernel (K4) when ``device`` is a
-    CUDA device and N ≤ 4096, else the gather walker; "cuda" / "gather" force
-    a path. On a CUDA device a kernel that fails to build or launch raises;
-    nothing falls back to the gather walker.
+    CUDA device, the graph packs as ELL and N ≤ 4096, else the gather walker;
+    "cuda" / "gather" force a path. The choice is made from the layout before
+    any launch. On a CUDA device a kernel that fails to build or launch
+    raises; nothing falls back to the gather walker.
     """
     cfg = WalkConfig(
         walks_per_node=walks_per_node,
@@ -66,7 +69,11 @@ def step_matrices_for_adjacency(
     dev = resolve_device(device)
     graph = _walk_graph(adj, ablation).to(dev)
     if method == "auto":
-        use_kernel = dev.type == "cuda" and graph.num_nodes <= k_walker.MAX_NODES
+        use_kernel = (
+            dev.type == "cuda"
+            and isinstance(graph, PackedGraph)
+            and graph.num_nodes <= k_walker.MAX_NODES
+        )
         method = "cuda" if use_kernel else "gather"
     if method == "cuda":
         return k_walker.sample_dense_step_matrices_cuda(graph, seed, cfg)
@@ -99,9 +106,8 @@ def features_for_adjacency(
     returns :class:`DenseFeatures` from :func:`step_matrices_for_adjacency`;
     above ``dense_bytes_limit`` it switches to the blocked walk → consolidate
     pipeline, which never materializes the (L, N, W) log, and the ``auto``
-    feature layout (the stencil layout on structured graphs; the layouts of
-    unstructured graphs are not ported yet and raise, ROADMAP Queue 1
-    item 12).
+    feature layout: the stencil layout on structured graphs, ELL with its
+    column-sorted transpose on unstructured ones.
     """
     n = adj.shape[0]
     if max_walk_length * n * n * 4 <= dense_bytes_limit:

@@ -2,11 +2,10 @@
 
 Counterpart of ``graphgp_tpu/preprocessor.py``, with the same md5 cache key
 and the same npz layout (``step_matrices_<key>.npz`` holding cols / vals /
-num_target_nodes, and the ``.stencil.npz`` sidecar holding vals / offsets),
+num_target_nodes; the ``.stencil.npz`` sidecar holding vals / offsets of a
+structured graph; the ``.csc.npz`` sidecar holding the column-sorted
+transpose of an unstructured one: rows, vals, seg_start, last_pos, has_any),
 so either package reads the other's cache.
-
-The ``.csc.npz`` sidecar and the ELL + transpose layout of unstructured
-graphs are not ported yet (ROADMAP Queue 1 item 12) and raise.
 """
 from __future__ import annotations
 
@@ -20,6 +19,8 @@ import torch
 
 from .devices import resolve_device
 from .features import (
+    CSC_FIELDS,
+    CscStepMatrices,
     EllFeatures,
     EllStepMatrices,
     StencilFeatures,
@@ -27,13 +28,11 @@ from .features import (
     consolidate,
     ell_to_stencil,
     suggest_row_capacity,
+    with_transpose,
 )
 from .graphs import pack_laplacian
 from .pipeline import DEFAULT_LOG_BUDGET_BYTES, blocked_ell_features
 from .walker import WalkConfig, sample_walk_log
-
-_ITEM_12 = "ROADMAP Queue 1 item 12: layouts for unstructured graphs"
-
 
 def _cache_key(adjacency, cfg: WalkConfig, seed: int) -> str:
     import scipy.sparse as sp
@@ -92,10 +91,13 @@ def preprocess_graph(
 
     ``layout="auto"`` converts the ELL matrices to the stencil layout
     (structured graphs: ring, grid, torus) with kernel K3 and returns
-    StencilFeatures; ``layout="ell"`` returns EllFeatures. ``trace``, when
-    given, receives the seconds of the walk+consolidate and the stencil
-    conversion phases (each ended by a device synchronize) and the
-    intermediate ELL step matrices (``"ell"``).
+    StencilFeatures; where the offset vocabulary is too large (unstructured
+    graphs) it returns EllFeatures with the column-sorted transpose attached.
+    ``layout="ell"`` returns EllFeatures. ``trace``, when given, receives the
+    seconds of the walk+consolidate, stencil conversion (``stencil_build_s``),
+    or of the offset scan that rules the stencil out (``vocabulary_s``) and
+    the transpose (``transpose_s``), each ended by a device
+    synchronize, and the intermediate ELL step matrices (``"ell"``).
     """
     if layout not in ("ell", "auto"):
         raise ValueError(f"unknown layout {layout!r}; expected 'ell' or 'auto'")
@@ -138,7 +140,7 @@ def _record(trace, name, t0, dev) -> None:
 
 
 def _load_layout_sidecar(base: str, device):
-    """Load a cached derived layout if present."""
+    """Load a cached derived layout (stencil, or ELL + transpose) if present."""
     spath = base + ".stencil.npz"
     if os.path.exists(spath):
         with np.load(spath) as z:
@@ -148,33 +150,40 @@ def _load_layout_sidecar(base: str, device):
                     offsets=np.asarray(z["offsets"], np.int32),
                 )
             )
-    if os.path.exists(base + ".csc.npz"):
-        raise NotImplementedError(
-            f"cached ELL + column-sorted transpose layout ({base}.csc.npz) is "
-            f"not ported yet ({_ITEM_12})"
-        )
+    cpath = base + ".csc.npz"
+    if os.path.exists(cpath):
+        mats = load_step_matrices(base + ".npz", device)
+        with np.load(cpath) as z:
+            csc = CscStepMatrices(*(torch.from_numpy(z[k]).to(device) for k in CSC_FIELDS))
+        return EllFeatures(mats, csc)
     return None
 
 
 def _apply_layout(mats: EllStepMatrices, layout: str, base: Optional[str], trace=None):
-    """ELL step matrices → requested layout; ``auto`` converts to stencil
-    when the offset vocabulary is small, saving a ``.stencil.npz`` sidecar
-    next to the ELL cache."""
+    """ELL step matrices → requested layout. ``auto`` converts to stencil
+    when the offset vocabulary is small and otherwise attaches the
+    column-sorted transpose, saving a ``.stencil.npz`` or ``.csc.npz``
+    sidecar next to the ELL cache."""
     if layout != "auto":
         return EllFeatures(mats)
     t0 = time.perf_counter()
     max_offsets = min(256, max(64, int(mats.num_nodes ** 0.5)))
     stencil = ell_to_stencil(mats, max_offsets=max_offsets)
-    if stencil is None:
-        raise NotImplementedError(
-            "the offset vocabulary exceeds the stencil limit (unstructured "
-            f"graph); its ELL + transpose layout is not ported yet ({_ITEM_12})"
-        )
-    _record(trace, "stencil_build_s", t0, stencil.vals.device)
+    if stencil is not None:
+        _record(trace, "stencil_build_s", t0, stencil.vals.device)
+        if base is not None:
+            np.savez(
+                base + ".stencil.npz",
+                vals=stencil.vals.cpu().numpy(),
+                offsets=np.asarray(stencil.offsets),
+            )
+        return StencilFeatures(stencil)
+    _record(trace, "vocabulary_s", t0, mats.cols.device)
+    t0 = time.perf_counter()
+    feats = with_transpose(EllFeatures(mats))
+    _record(trace, "transpose_s", t0, mats.cols.device)
     if base is not None:
         np.savez(
-            base + ".stencil.npz",
-            vals=stencil.vals.cpu().numpy(),
-            offsets=np.asarray(stencil.offsets),
+            base + ".csc.npz", **{k: getattr(feats.csc, k).cpu().numpy() for k in CSC_FIELDS}
         )
-    return StencilFeatures(stencil)
+    return feats

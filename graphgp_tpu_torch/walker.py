@@ -15,17 +15,22 @@ implemented), so the hash runs in int64 holding u32 values, masked with
 32 bits right. The leading hash words are scalars and are mixed in Python
 integers; only the last mix runs over the (nodes, walks) lanes.
 
-The JAX package's packed-table and hop-table lookups are TPU strategies with
-bit-identical results; this port uses the flat per-lane lookup only.
+A step looks up the current node's row in one of two layouts: the ELL table
+of a :class:`PackedGraph` or the exact rows of a :class:`CsrGraph` (skewed
+degrees). Both pick ``min(floor(u·deg), deg − 1)`` into the row, as the JAX
+package's flat ELL and CSR lookups do. Its packed-table and hop-table lookups
+are TPU strategies with bit-identical results and are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
-from .graphs import PackedGraph
+from .graphs import CsrGraph, PackedGraph
+
+Graph = Union[PackedGraph, CsrGraph]
 
 _U32 = 0xFFFFFFFF
 
@@ -94,8 +99,37 @@ def key_words(seed: int):
     return 0, int(seed) & _U32
 
 
+def _lookup(graph: Graph):
+    """``lookup(cur, u_pick) -> (degree as float32, next node, weight)``: the
+    uniform pick into the row of each lane's current node. A node of degree 0
+    reads slot 0 of its row (clamped into the table) and halts."""
+    if isinstance(graph, CsrGraph):
+        row_start = graph.node_table[:, 0].to(torch.int64)
+        degree, neighbors, weights = graph.degree, graph.neighbors, graph.weights
+        last = max(graph.nnz - 1, 0)
+
+        def slot(cur, pick):
+            return torch.clamp(row_start[cur] + pick, max=last)
+    else:
+        degree = graph.degree
+        neighbors, weights = graph.neighbors.reshape(-1), graph.weights.reshape(-1)
+        dmax = graph.max_degree
+
+        def slot(cur, pick):
+            return cur * dmax + pick
+
+    def lookup(cur, u_pick):
+        deg = degree[cur]
+        degf = deg.to(torch.float32)
+        pick = torch.minimum((u_pick * degf).to(torch.int64), torch.clamp(deg - 1, min=0))
+        idx = slot(cur, pick)
+        return degf, neighbors[idx].to(torch.int64), weights[idx]
+
+    return lookup
+
+
 def sample_walk_log(
-    graph: PackedGraph,
+    graph: Graph,
     seed: int,
     cfg: WalkConfig,
     node_offset: int = 0,
@@ -104,7 +138,8 @@ def sample_walk_log(
     """Run ``walks_per_node`` importance-sampled walks from each start node.
 
     Args:
-        graph: ELL-packed graph over the full node set, on the device to walk on.
+        graph: ELL- or CSR-packed graph over the full node set, on the device
+            to walk on.
         seed: integer walk seed (the JAX package's ``PRNGKey(seed)``).
         cfg: walk configuration.
         node_offset: global id of the first start node.
@@ -125,10 +160,7 @@ def sample_walk_log(
     start = node_offset + torch.arange(n, dtype=torch.int64, device=dev)
     node_word = start[:, None]
     walk_word = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
-    flat_neighbors = graph.neighbors.reshape(-1)
-    flat_weights = graph.weights.reshape(-1)
-    degree = graph.degree
-    dmax = graph.max_degree
+    lookup = _lookup(graph)
     p_halt = torch.tensor(cfg.p_halt, dtype=torch.float32, device=dev)
     inv_keep = torch.tensor(1.0 / (1.0 - cfg.p_halt), dtype=torch.float32, device=dev)
 
@@ -146,12 +178,7 @@ def sample_walk_log(
             break  # the last transition is never recorded
         u_halt = uniform(2 * l)
         u_pick = uniform(2 * l + 1)
-        deg = degree[cur]
-        degf = deg.to(torch.float32)
-        pick = torch.minimum((u_pick * degf).to(torch.int64), torch.clamp(deg - 1, min=0))
-        flat_idx = cur * dmax + pick
-        nxt = flat_neighbors[flat_idx].to(torch.int64)
-        wgt = flat_weights[flat_idx]
+        degf, nxt, wgt = lookup(cur, u_pick)
         halt = (degf == 0) | (u_halt < p_halt)
         new_load = wgt if cfg.ablation else load * degf * wgt * inv_keep
         alive = alive & ~halt
@@ -177,14 +204,14 @@ def dense_step_matrices(
     return out.index_add(0, flat, vals).reshape(l, n, nt)
 
 
-def sample_dense_step_matrices(graph: PackedGraph, seed: int, cfg: WalkConfig) -> torch.Tensor:
+def sample_dense_step_matrices(graph: Graph, seed: int, cfg: WalkConfig) -> torch.Tensor:
     """Walk and consolidate: (L, N, N) dense step matrices, the step axis
     first. The small-N sampler (the walk log is L·N·W entries and the result
     L·N² floats)."""
     return dense_step_matrices(sample_walk_log(graph, seed, cfg), cfg)
 
 
-def fused_phi(graph: PackedGraph, seed: int, modulator, cfg: WalkConfig) -> torch.Tensor:
+def fused_phi(graph: Graph, seed: int, modulator, cfg: WalkConfig) -> torch.Tensor:
     """Sample walks and accumulate ``Φ = Σ_l f_l · M_l`` (N, N) directly,
     skipping the (L, N, N) intermediate: for a fixed modulator. To learn
     hyperparameters prefer the step matrices, which make Φ(f) a contraction."""

@@ -116,15 +116,3 @@ def test_jax_cache_loads_in_the_port_and_back(tmp_path, kind):
     np.testing.assert_array_equal(np.asarray(back.mats.vals), mine.mats.vals.numpy())
     np.testing.assert_allclose(mine.mats.vals.numpy(), np.asarray(ref.mats.vals),
                                rtol=0, atol=1e-6)  # same walks, another summation order
-
-
-def test_csc_sidecar_raises_naming_item_12(tmp_path):
-    from graphgp_tpu_torch.preprocessor import _cache_key
-
-    adj = generate("grid", 64, seed=0)["adjacency"]
-    cfg = twalker.WalkConfig(8, 0.1, 3)
-    base = tmp_path / f"step_matrices_{_cache_key(adj, cfg, 42)}"
-    torch_preprocess(adj, cfg, cache_dir=str(tmp_path), device="cpu")  # ELL cache only
-    np.savez(str(base) + ".csc.npz", rows=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        torch_preprocess(adj, cfg, cache_dir=str(tmp_path), layout="auto", device="cpu")

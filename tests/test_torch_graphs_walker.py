@@ -52,11 +52,6 @@ def test_pack_laplacian_dense_er_within_two_ulps(er_adj):
     np.testing.assert_allclose(gt.weights.numpy(), wj, rtol=2.4e-7, atol=0)
 
 
-def test_pack_csr_layout_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tgraphs.pack_laplacian(_grid_adj(), layout="csr")
-
-
 def test_hash_words_equal_on_random_u32():
     rng = np.random.default_rng(0)
     a, b, c = (rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32) for _ in range(3))

@@ -117,12 +117,6 @@ def test_features_for_adjacency_guardrail():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_features_for_adjacency_unstructured_large_graph_names_item_12(er_adj):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tkernels.features_for_adjacency(sp.csr_matrix(er_adj), 0, walks_per_node=16,
-                                        max_walk_length=3, dense_bytes_limit=1, **CPU)
-
-
 def test_fast_general_grf_kernel_quickstart(toy_cycle_adj):
     want = np.asarray(jgg.fast_general_grf_kernel(
         toy_cycle_adj, modulator_vector=[1.0, 0.5, 0.25], walks_per_node=50, p_halt=0.1))
