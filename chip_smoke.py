@@ -3,8 +3,10 @@
 
 Drives the port's main paths on one CUDA card, the million-node GRF-Thompson
 BO flagship, the scaling experiment with full-space prediction, the
-dense-regime protocols (ablation and traffic regression) and GRF-Thompson on
-the shipped facebook graph, and holds each
+dense-regime protocols (ablation and traffic regression, the latter also on
+the PEMS-BAY dataset with the GCN baseline), the wind protocol, SVGP
+classification, GRF-Thompson on the shipped facebook graph and the
+orchestrator, fails if any record of any phase carries an error, and holds each
 hand-written kernel of those paths against its plain PyTorch version on the
 paths' own tensors:
 
@@ -54,7 +56,8 @@ paths' own tensors:
      replayed from a CUDA graph, no host launch path) beside the wrapper's
      (CUDA events around calls from the host), and its bound from
      this run's walks, their integer work at the INT32 rate and their float
-     work at the FP32 rate;
+     work at the FP32 rate (after phase 10, also at the wind cell's sphere
+     grid and the classification cell's community graph, both W 4096, L 5);
   9. GRF-Thompson on the shipped facebook graph (N 22470, skewed degrees:
      the walks take the CSR layout, the features ELL with its column-sorted
      transpose; no kernel of this package runs there): first, card against
@@ -70,7 +73,25 @@ paths' own tensors:
      products per BO iteration, each seed's regret beside the record's
      1.4654 (finite, never rising, ending at or below its first), and the
      ELL forward and transposed products' ms at B = 1 and 16 (the fit's
-     widths) beside their byte bounds, each twice bit for bit.
+     widths) beside their byte bounds, each twice bit for bit;
+ 10. K4 at this slice's shapes, its counter zeroed just before each path and
+     read just after: the traffic CLI on the PEMS-BAY dataset through the
+     loader (the JAX record's obs-noise 0.45, walks 1024, one seed) with the
+     GCN baseline, beside the JAX record's seed 0; the wind protocol through
+     graphgp_tpu_torch.cli.wind (synthetic 19x36 sphere grid, N 684, 290
+     track nodes; walks 32, 512, 4096, free and diffusion, 300 Adam steps,
+     200 pathwise samples): each fit's and prediction's seconds, RMSE and
+     NLPD beside the JAX record's seed 0, 3 K4 launches, free RMSE at 4096
+     below that at 32 and below 1; SVGP's posterior and ELBO card against
+     CPU at the classification cell's shapes (rel 1e-4, TF32 off), then
+     graphgp_tpu_torch.cli.classification on the synthetic community graph at
+     Cora's shape (N 2485, 7 classes, 1988 train, 497 test, M 994, walks 4096,
+     L 5, robustmax, Adam 3e-3 x 1000, two restarts), free (1 K4 launch) and
+     exact_diffusion: fit seconds, accuracy (at least 0.5), NLL and ELBO
+     beside the JAX records on real Cora;
+ 11. the orchestrator, graphgp_tpu_torch.cli.run_all over circle and grid at
+     4096 nodes, random search and GRF-Thompson, 3 iterations: no error row,
+     bo_all_graphs.csv written, K1 and K3 launched.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -79,12 +100,18 @@ TRAIN_EPOCHS Adam epochs (the reference protocol runs 50 x 30); DENSE_SEEDS
 seed of the ablation and traffic protocols (they run 3), ABLATION_TRAIN_STEPS
 optimizer steps per ablation fit (of 1000), and the default-grid traffic run at
 the walks GRID_WALKS and GRID_TRAIN_STEPS L-BFGS steps (of 200); the traffic
-protocol on the PEMS graph runs its full sweep at its own 200 steps. The
-facebook cell runs uncut (FB_ITERATIONS iterations, both of FB_SEEDS).
-Widths are the protocols' own.
+protocol on the PEMS graph runs its full walks sweep at PEMS_TRAIN_STEPS
+L-BFGS steps (of 200: cut so that the script, with the wind and
+classification paths, stays near half its time limit). The
+facebook cell runs uncut (FB_ITERATIONS iterations, both of FB_SEEDS). The
+PEMS-BAY dataset run takes 1 seed of 3 and walks 1024 of the record's
+1..8192; wind 1 seed of 3 at the CLI's 300 Adam steps (the JAX record ran
+1000) and walks WIND_WALKS; classification 1 seed of 5; the orchestrator 1
+run of 3 iterations at 4096 nodes. Widths are the protocols' own.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -123,6 +150,7 @@ DENSE_SEEDS = 1              # the ablation and traffic protocols run 3 seeds
 ABLATION_TRAIN_STEPS = 300   # the ablation protocol takes 1000 optimizer steps per fit
 GRID_WALKS = (1, 1024)       # the default-grid traffic run (the protocol sweeps 1, 4, ..., 1024)
 GRID_TRAIN_STEPS = 50        # ... at 200 L-BFGS steps per fit
+PEMS_TRAIN_STEPS = 100       # the PEMS sweep's L-BFGS steps per fit (the protocol takes 200)
 PEMS_NPZ = "processed_data/pems_bay.npz"
 # K4 against its plain version, relative to max |ref|: the walks are
 # bit-identical; each cell is a float32 sum of up to W loads. The kernel sums
@@ -169,6 +197,30 @@ FB_PROBES = 16  # the fit's batch width: the SLQ probes
 # the ELL products, card against CPU, relative to max |ref|: float32 sums of
 # up to R (or 128, then a column's virtual rows) terms in another order
 REL_TOL_FB = 1e-5
+
+
+# This slice's cells: the wind protocol on its synthetic sphere grid (the
+# JAX record ran 1000 Adam steps, walks 32..8192), classification on the
+# synthetic community graph at Cora's shape (the JAX records are real Cora's,
+# free and exact-diffusion), the traffic CLI on the PEMS-BAY dataset with
+# the GCN baseline (the JAX record's settings), and the orchestrator.
+WIND_WALKS = (32, 512, 4096)
+WIND_RECORD = "artifacts/results/wind.csv"
+CLASS_NODES, CLASS_CLASSES, CLASS_TRAIN = 2485, 7, 1988
+CLASS_ARGV = ["--n-nodes", str(CLASS_NODES), "--num-classes", str(CLASS_CLASSES),
+              "--walks-per-node", "4096", "--max-walk-length", "5", "--p-halt", "0.1",
+              "--likelihood", "robustmax", "--learning-rate", "3e-3", "--num-steps", "1000",
+              "--seeds", "1"]
+CLASS_RECORDS = ("artifacts/results/classification.csv",
+                 "artifacts/results/cora_exact/classification.csv")
+# the SVGP posterior and ELBO, card against CPU, relative to max |ref|:
+# float32 Cholesky (M = 994) and triangular solves from two libraries
+REL_TOL_SVGP = 1e-4
+PEMS_BAY_RECORD = "artifacts/results/pems_bay/regression.csv"
+PEMS_BAY_OBS_NOISE = 0.45
+PEMS_BAY_WALKS = 1024
+RUN_ALL_ARGV = ["--graph-types", "circle", "grid", "--n-nodes", "4096", "--runs", "1",
+                "--iterations", "3", "--algorithms", "random_search", "grf_thompson"]
 
 
 def log(msg: str) -> None:
@@ -623,6 +675,7 @@ def scaling_path(device) -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     k2.gram_cg = fused_solve
+    check_no_error_rows("scaling", records)
     launches = {"stencil_matvec": k1.launches, "ell_to_stencil": k3.launches,
                 "gram_rmv_mask": k2.rmv_mask_launches,
                 "gram_mv_epilogue": k2.mv_epilogue_launches}
@@ -1155,36 +1208,58 @@ def dense_small_agreement(device) -> None:
     check(exact_err <= 0.05, f"diffusion estimate is {exact_err} from the exact heat kernel")
 
 
-def _timed_dense_calls():
-    """Wrap kernels.features_for_adjacency and gp.exact.fit, which the dense
-    CLIs reach through their modules, to add up the seconds spent in each
-    (each call ended by a device synchronize). Returns (totals, restore)."""
+def _timed_calls(targets: dict):
+    """Wrap each ``(module, name)`` of ``targets`` (label -> pair), which the
+    CLIs reach through their modules, to add up the seconds spent in it and
+    each call's own seconds (each call ended by a device synchronize).
+    Returns (totals, per-call seconds, restore)."""
     import torch
 
-    from graphgp_tpu_torch import kernels
-    from graphgp_tpu_torch.gp import exact, spectral
+    totals = {label: 0.0 for label in targets}
+    calls = {label: [] for label in targets}
+    originals = {label: getattr(mod, name) for label, (mod, name) in targets.items()}
 
-    totals = {"features": 0.0, "exact_fit": 0.0, "spectral_fit": 0.0}
-    originals = (kernels.features_for_adjacency, exact.fit, spectral.fit)
-
-    def timed(name, fn):
+    def timed(label, fn):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            totals[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            totals[label] += dt
+            calls[label].append(dt)
             return out
         return wrapper
 
-    kernels.features_for_adjacency = timed("features", originals[0])
-    exact.fit = timed("exact_fit", originals[1])
-    spectral.fit = timed("spectral_fit", originals[2])
+    for label, (mod, name) in targets.items():
+        setattr(mod, name, timed(label, originals[label]))
 
     def restore():
-        kernels.features_for_adjacency, exact.fit, spectral.fit = originals
+        for label, (mod, name) in targets.items():
+            setattr(mod, name, originals[label])
 
+    return totals, calls, restore
+
+
+def _timed_dense_calls():
+    """``_timed_calls`` of the step matrices and the fits the dense CLIs
+    make: ``kernels.features_for_adjacency``, ``gp.exact.fit``,
+    ``gp.spectral.fit`` and the GCN baseline's ``fit_gcn``."""
+    from graphgp_tpu_torch import baselines, kernels
+    from graphgp_tpu_torch.gp import exact, spectral
+
+    totals, _, restore = _timed_calls({
+        "features": (kernels, "features_for_adjacency"), "exact_fit": (exact, "fit"),
+        "spectral_fit": (spectral, "fit"), "gcn_fit": (baselines, "fit_gcn")})
     return totals, restore
+
+
+def check_no_error_rows(name: str, records: list) -> None:
+    """No record of a phase may carry an error: a sweep records a failed cell
+    as a row and goes on, so a failure on the card would otherwise pass."""
+    bad = [r for r in records if "error" in r]
+    check(not bad, f"{name}: {len(bad)} error row(s), the first: {bad[0]['error'][-2000:]}"
+          if bad else "")
 
 
 def _run_dense_cli(name: str, main_fn, argv: list, device) -> tuple:
@@ -1207,10 +1282,12 @@ def _run_dense_cli(name: str, main_fn, argv: list, device) -> tuple:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = k4.launches
+    gcn = f", GCN Adam fits {totals['gcn_fit']:.2f} s" if totals["gcn_fit"] else ""
     log(f"{name}: {total_s:.2f} s in all; step matrices (K4) {totals['features']:.3f} s over "
         f"{launches} launches, L-BFGS fits {totals['exact_fit']:.2f} s, spectral Adam fits "
-        f"{totals['spectral_fit']:.2f} s")
+        f"{totals['spectral_fit']:.2f} s{gcn}")
     check(launches > 0, f"K4 was not launched by {name}")
+    check_no_error_rows(name, records)
     return records, launches, total_s
 
 
@@ -1251,10 +1328,13 @@ def traffic_protocol(device) -> int:
 
     defaults = regression.build_parser().parse_args([])
     log(f"traffic protocol: PEMS sensor graph, {defaults.num_train} train, p_halt {defaults.p_halt}, "
-        f"L {defaults.max_walk_length}, walks {defaults.walks}, {defaults.train_steps} L-BFGS steps, "
-        f"two restarts per fit; depth cut: {DENSE_SEEDS} seed (the protocol runs 3)")
+        f"L {defaults.max_walk_length}, walks {defaults.walks}, two restarts per fit; depth cut: "
+        f"{DENSE_SEEDS} seed (the protocol runs 3), {PEMS_TRAIN_STEPS} L-BFGS steps per fit (it "
+        f"takes {defaults.train_steps})")
     records, launches, _ = _run_dense_cli(
-        "traffic_pems", regression.main, ["--pems-npz", PEMS_NPZ, "--seeds", str(DENSE_SEEDS)], device)
+        "traffic_pems", regression.main,
+        ["--pems-npz", PEMS_NPZ, "--seeds", str(DENSE_SEEDS), "--train-steps", str(PEMS_TRAIN_STEPS)],
+        device)
     check(launches == DENSE_SEEDS * len(defaults.walks), f"traffic: {launches} K4 launches")
     top = max(defaults.walks)
 
@@ -1295,6 +1375,221 @@ def traffic_protocol(device) -> int:
     check(by[("grf_diffusion_transplant", GRID_WALKS[-1])] < by[("grf_diffusion_transplant", 1)],
           "traffic grid: the transplant arm does not improve with walks_per_node")
     return launches + grid_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: K4 at this slice's shapes: the traffic CLI on the PEMS-BAY
+# dataset with the GCN baseline, the wind protocol, SVGP classification
+# ---------------------------------------------------------------------------
+
+
+def _jax_rows(path: str, **match) -> list:
+    """Rows of one of the JAX package's result CSVs (its records on its own
+    chip) whose fields equal ``match`` (compared as text)."""
+    import csv
+
+    with open(path, newline="") as fh:
+        return [r for r in csv.DictReader(fh)
+                if all(r.get(k) == str(v) for k, v in match.items())]
+
+
+@contextlib.contextmanager
+def data_root():
+    """A temporary directory whose empty ``raw`` subdirectory GRAPHGP_DATA_ROOT
+    names while it is open: the raw-data root the dataset loader insists on
+    (it reads the shipped cache under processed_data/ and nothing there)."""
+    import os
+    import tempfile
+
+    saved = os.environ.get("GRAPHGP_DATA_ROOT")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "raw"))
+        os.environ["GRAPHGP_DATA_ROOT"] = os.path.join(tmp, "raw")
+        try:
+            yield tmp
+        finally:
+            if saved is None:
+                os.environ.pop("GRAPHGP_DATA_ROOT", None)
+            else:
+                os.environ["GRAPHGP_DATA_ROOT"] = saved
+
+
+def traffic_dataset_path(device) -> int:
+    """The traffic CLI on the PEMS-BAY dataset through the loader, with the
+    GCN baseline, at the JAX PEMS-BAY record's settings for one seed and one
+    walks_per_node."""
+    import numpy as np
+
+    from graphgp_tpu_torch.cli import regression
+
+    log(f"traffic protocol, dataset graph: --graph-type pems_bay through the loader, obs-noise "
+        f"{PEMS_BAY_OBS_NOISE}, walks {PEMS_BAY_WALKS}, the GCN baseline ({PEMS_BAY_RECORD}: the "
+        f"same settings, 3 seeds, walks 1..8192); depth cut: 1 seed, 1 walks_per_node")
+    with data_root():
+        records, launches, _ = _run_dense_cli(
+            "traffic_pems_bay_dataset", regression.main,
+            ["--graph-type", "pems_bay", "--obs-noise", str(PEMS_BAY_OBS_NOISE),
+             "--walks", str(PEMS_BAY_WALKS), "--seeds", "1", "--gnn-baseline"], device)
+    check(launches == 1, f"traffic pems_bay: {launches} K4 launches")
+    for r in records:
+        check(np.isfinite(r["rmse"]) and (r["kernel"] in ("gcn", "grf_diffusion_transplant")
+                                          or np.isfinite(r["nlpd"])),
+              f"traffic pems_bay: {r['kernel']} not finite")
+    by = {(r["kernel"], r["walks_per_node"]): r["rmse"] for r in records}
+    check(("gcn", 0) in by, "traffic pems_bay: no gcn row")
+    ref = {(r["kernel"], int(r["walks_per_node"])): float(r["rmse"])
+           for r in _jax_rows(PEMS_BAY_RECORD, seed=0)}
+    log("traffic (PEMS-BAY dataset) rmse, seed 0, beside the JAX record's seed 0: " + ", ".join(
+        f"{k}{f' wpn {w}' if w else ''} {v:.4f} ({ref.get((k, w), float('nan')):.4f})"
+        for (k, w), v in by.items()))
+    return launches
+
+
+def wind_path(device) -> int:
+    """cli.wind.main on the synthetic 19x36 sphere grid (N 684, 290 track
+    nodes), walks WIND_WALKS, both kernels, one seed, the CLI's 300 Adam steps
+    and 200 pathwise samples; K4's counter zeroed just before and read just
+    after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch.cli import wind
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+    from graphgp_tpu_torch.gp import iterative
+
+    defaults = wind.build_parser().parse_args([])
+    log(f"wind: synthetic {defaults.n_lat}x{defaults.n_lon} sphere grid, walks {list(WIND_WALKS)}, "
+        f"kinds {defaults.kinds}, p_halt {defaults.p_halt}, L {defaults.max_walk_length}, "
+        f"{defaults.train_steps} Adam steps, {defaults.num_pathwise_samples} pathwise samples; depth "
+        f"cut: 1 seed of {defaults.seeds} ({WIND_RECORD}: 1000 steps, walks 32..8192)")
+    totals, calls, restore = _timed_calls({"fit": (iterative, "fit"),
+                                           "predict": (iterative, "pathwise_predict")})
+    k4.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            records = wind.main(["--walks", *map(str, WIND_WALKS), "--seeds", "1",
+                                 "--device", device, "--results-dir", d])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = k4.launches
+    check_no_error_rows("wind", records)
+    ref = {(r["kernel"], int(r["walks_per_node"])): r for r in _jax_rows(WIND_RECORD, seed=0)}
+    for r, fit_s, pred_s in zip(records, calls["fit"], calls["predict"]):
+        j = ref.get((r["kernel"], r["walks_per_node"]))
+        beside = f" (JAX record, 1000 steps: {float(j['rmse']):.4f} / {float(j['nlpd']):.4f})" if j else ""
+        log(f"wind {r['kernel']} wpn {r['walks_per_node']}: fit {fit_s:.2f} s, predict "
+            f"{pred_s:.3f} s, rmse / nlpd {r['rmse']:.4f} / {r['nlpd']:.4f}{beside}")
+    log(f"wind: {total_s:.2f} s in all (fits {totals['fit']:.2f} s, predictions "
+        f"{totals['predict']:.2f} s); K4 launches {launches}; {card_line()}")
+    check(len(records) == len(WIND_WALKS) * len(defaults.kinds), f"wind: {len(records)} records")
+    for r in records:
+        check(np.isfinite(r["rmse"]) and np.isfinite(r["nlpd"]),
+              f"wind: {r['kernel']} wpn {r['walks_per_node']} not finite")
+    check(launches == len(WIND_WALKS), f"wind: {launches} K4 launches")
+    free = {r["walks_per_node"]: r["rmse"] for r in records if r["kernel"] == "free"}
+    top, low = max(WIND_WALKS), min(WIND_WALKS)
+    check(free[top] < free[low], f"wind: free rmse at wpn {top} {free[top]} is not below "
+          f"wpn {low}'s {free[low]}")
+    check(free[top] < 1.0, f"wind: free rmse at wpn {top} is {free[top]} (standardized targets)")
+    return launches
+
+
+def svgp_card_against_cpu(device) -> None:
+    """``svgp._latent_posterior`` and ``svgp.elbo`` on the same DenseFeatures
+    and parameters, card against CPU, at the classification cell's shapes
+    (N 2485, 1988 train, M 994, 7 classes; walks_per_node 64 on the CPU)."""
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch.cli.classification import synthetic_community_graph
+    from graphgp_tpu_torch.features import DenseFeatures
+    from graphgp_tpu_torch.gp import svgp
+    from graphgp_tpu_torch.kernels import features_for_adjacency
+
+    adj, labels = synthetic_community_graph(CLASS_NODES, CLASS_CLASSES, 0)
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(CLASS_NODES)
+    tr = np.sort(perm[:CLASS_TRAIN])
+    ind = np.sort(rng.choice(tr, CLASS_TRAIN // 2, replace=False))
+    cpu = features_for_adjacency(adj, 42, walks_per_node=64, p_halt=0.1, max_walk_length=5,
+                                 device="cpu")
+    card = DenseFeatures(cpu.step_matrices.to(device))
+    gen = torch.Generator().manual_seed(0)
+    params = svgp.init_variational("free", 5, ind.size, CLASS_CLASSES, generator=gen)
+    params["q_mu"] = torch.randn(params["q_mu"].shape, generator=gen)
+    params["q_sqrt"] = params["q_sqrt"] + 0.01 * torch.randn(params["q_sqrt"].shape,
+                                                             generator=gen).tril(-1)
+    idx = {d: (torch.from_numpy(ind).to(d), torch.from_numpy(tr).to(d)) for d in ("cpu", device)}
+    y = torch.from_numpy(labels[tr].astype(np.int64))
+    on = {k: v.to(device) for k, v in params.items()}
+    post = svgp._latent_posterior(cpu, params, *idx["cpu"], "free")
+    post_c = svgp._latent_posterior(card, on, *idx[device], "free")
+    _, rel_m = rel_err(post_c.mean.cpu(), post.mean)
+    _, rel_v = rel_err(post_c.var.cpu(), post.var)
+    e = float(svgp.elbo(cpu, params, *idx["cpu"], y, kind="free", likelihood="robustmax"))
+    e_c = float(svgp.elbo(card, on, *idx[device], y.to(device), kind="free", likelihood="robustmax"))
+    rel_e = abs(e_c - e) / abs(e)
+    log(f"SVGP card against CPU (N {CLASS_NODES}, M {ind.size}, {tr.size} train, "
+        f"{CLASS_CLASSES} classes): posterior mean rel {rel_m:.2e}, var rel {rel_v:.2e}, robustmax "
+        f"ELBO {e_c:.3f} against {e:.3f} (rel {rel_e:.2e}); tolerance {REL_TOL_SVGP:.0e}")
+    check(max(rel_m, rel_v, rel_e) <= REL_TOL_SVGP,
+          f"SVGP card against CPU: rel {max(rel_m, rel_v, rel_e)}")
+
+
+def classification_path(device) -> int:
+    """cli.classification.main on the synthetic community graph at Cora's
+    shape, the JAX Cora record's settings, one seed, the free and
+    exact_diffusion kernels; K4's counter zeroed just before each and read
+    just after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch.cli import classification
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+    from graphgp_tpu_torch.gp import svgp
+
+    log(f"classification: synthetic community graph at Cora's shape (N {CLASS_NODES}, "
+        f"{CLASS_CLASSES} classes, 80/20 split, M = train/2), {' '.join(CLASS_ARGV)}; depth cut: "
+        f"1 seed of 5 (the JAX records: real Cora, {CLASS_RECORDS})")
+    launches = 0
+    for kind, record in zip(("free", "exact_diffusion"), CLASS_RECORDS):
+        totals, calls, restore = _timed_calls({"fit": (svgp, "fit")})
+        k4.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                records = classification.main([*CLASS_ARGV, "--kernel-kind", kind,
+                                               "--device", device, "--results-dir", d])
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        check_no_error_rows(f"classification {kind}", records)
+        (r,) = records
+        j = _jax_rows(record, seed=0)[0]
+        log(f"classification {kind}: {total_s:.2f} s in all, fits (two restarts) "
+            f"{[round(x, 2) for x in calls['fit']]} s; accuracy {r['accuracy']:.4f}, test NLL "
+            f"{r['test_nll']:.4f}, ELBO {r['final_elbo']:.1f} (n_train {r['n_train']}, n_test "
+            f"{r['n_test']}, M {r['num_inducing']}); the JAX record on real Cora, seed 0: "
+            f"{float(j['accuracy']):.4f}, {float(j['test_nll']):.4f}, "
+            f"{float(j['final_elbo']):.1f}; K4 launches {k4.launches}; {card_line()}")
+        check(all(np.isfinite(r[k]) for k in ("accuracy", "test_nll", "final_elbo")),
+              f"classification {kind}: not finite")
+        check(r["accuracy"] >= 0.5, f"classification {kind}: accuracy {r['accuracy']}")
+        check((r["n_train"], r["n_test"], r["num_inducing"]) == (CLASS_TRAIN, CLASS_NODES -
+                                                                  CLASS_TRAIN, CLASS_TRAIN // 2),
+              f"classification {kind}: split {r['n_train']}/{r['n_test']}/{r['num_inducing']}")
+        check(k4.launches == (1 if kind == "free" else 0),
+              f"classification {kind}: {k4.launches} K4 launches")
+        launches += k4.launches
+    return launches
 
 
 def _k4_live_steps(graph, seed, cfg) -> tuple:
@@ -1373,6 +1668,10 @@ def k4_check(label: str, graph, seed: int, cfg, reps: int, plain_reps: int) -> d
 def k4_checks(device, launches: int) -> dict:
     """K4 at the dense paths' own shapes and at the edge of its regime. The
     row of the kernels line is the ablation protocol's principled cell."""
+    import numpy as np
+
+    from graphgp_tpu_torch.cli.classification import synthetic_community_graph
+    from graphgp_tpu_torch.cli.wind import build_sphere_grid_graph
     from graphgp_tpu_torch.data import database, synthetic
     from graphgp_tpu_torch.graphs import pack_dense, pack_laplacian
     from graphgp_tpu_torch.walker import WalkConfig
@@ -1388,6 +1687,15 @@ def k4_checks(device, launches: int) -> dict:
              WalkConfig(1024, 0.1, 10), reps=20, plain_reps=3)
     k4_check("traffic protocol, PEMS graph, one walk", pack_laplacian(pems).to(device), 42,
              WalkConfig(1, 0.1, 10), reps=20, plain_reps=3)
+    lat = np.linspace(-90, 90, 19)
+    lon = np.linspace(-180, 180, 36, endpoint=False)
+    k4_check("wind protocol, 19x36 sphere grid", pack_laplacian(
+        build_sphere_grid_graph(lat, lon)).to(device), 42, WalkConfig(max(WIND_WALKS), 0.1, 5),
+        reps=10, plain_reps=1)
+    community, _ = synthetic_community_graph(CLASS_NODES, CLASS_CLASSES, 0)
+    k4_check("classification, community graph at Cora's shape",
+             pack_laplacian(community).to(device), 42, WalkConfig(4096, 0.1, 5), reps=10,
+             plain_reps=1)
     big = synthetic.generate("grid", 4096, seed=0)["adjacency"]
     k4_check("edge of the regime, 64x64 grid", pack_laplacian(big).to(device), 7,
              WalkConfig(8192, 0.1, 10), reps=10, plain_reps=1)
@@ -1466,7 +1774,6 @@ def _fb_card_against_cpu(adj, device) -> None:
 
 def facebook_path(device) -> None:
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -1481,7 +1788,6 @@ def facebook_path(device) -> None:
         f"batch 1, 10 initial points, 30 epochs, retrain every 10, cg_tol 1e-2, gaussianized "
         f"targets, walk seed 42); depth cut: {FB_ITERATIONS} iterations, BO seeds {FB_SEEDS} "
         f"(the record: 20 iterations, seeds 100 and 110)")
-    saved_root = os.environ.get("GRAPHGP_DATA_ROOT")
     counts = {"forward": 0, "transposed": 0}
     originals = (preprocessor.preprocess_graph, cli_bo.make_algorithm,
                  tfeat.ell_phi_matvec_bm, tfeat.csc_phi_rmatvec_bm)
@@ -1512,10 +1818,7 @@ def facebook_path(device) -> None:
         captured["algos"].append(algo)
         return algo
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "raw")
-        os.makedirs(root)
-        os.environ["GRAPHGP_DATA_ROOT"] = root
+    with data_root() as tmp:
         try:
             data = GraphDataLoader(cache_dir="processed_data")("facebook")
             adj = data["adjacency"]
@@ -1549,11 +1852,8 @@ def facebook_path(device) -> None:
         finally:
             (preprocessor.preprocess_graph, cli_bo.make_algorithm,
              tfeat.ell_phi_matvec_bm, tfeat.csc_phi_rmatvec_bm) = originals
-            if saved_root is None:
-                os.environ.pop("GRAPHGP_DATA_ROOT", None)
-            else:
-                os.environ["GRAPHGP_DATA_ROOT"] = saved_root
 
+    check_no_error_rows("facebook BO", records)
     feats = captured["feats"]
     mats, csc = feats.mats, feats.csc
     check(isinstance(feats, tfeat.EllFeatures) and csc is not None,
@@ -1601,6 +1901,47 @@ def facebook_path(device) -> None:
         log(f"facebook products at B={b}: ELL forward {fwd_ms:.4f} ms (byte bound "
             f"{fwd_bound:.4f} ms), transposed through the transpose {tra_ms:.4f} ms (byte bound "
             f"{tra_bound:.4f} ms); repeat bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the orchestrator (cli.run_all over two synthetic graph types)
+# ---------------------------------------------------------------------------
+
+
+def orchestrator(device) -> None:
+    """cli.run_all.main over circle and grid at 4096 nodes, random search and
+    GRF-Thompson, one run of 3 iterations: no error row, the combined CSV
+    written; the stencil kernels' counters zeroed just before and read just
+    after."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+
+    from graphgp_tpu_torch.cli import run_all
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+    from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
+
+    log(f"orchestrator: cli.run_all over {' '.join(RUN_ALL_ARGV)}")
+    k1.launches = k1.dw_launches = k3.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        records = run_all.main([*RUN_ALL_ARGV, "--device", device, "--results-dir", d,
+                                "--cache-dir", os.path.join(d, "cache")])
+        path = os.path.join(d, "bo_all_graphs.csv")
+        check(os.path.exists(path), "orchestrator: bo_all_graphs.csv was not written")
+        with open(path, newline="") as fh:
+            rows = list(csv.DictReader(fh))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    check_no_error_rows("orchestrator", records)
+    final = {(r["graph_type"], r["algorithm"]): r["regret"] for r in records if r["iteration"] == 3}
+    log(f"orchestrator: {total_s:.2f} s; {len(rows)} rows in bo_all_graphs.csv; final regret "
+        f"{ {k: round(v, 4) for k, v in final.items()} }; K1 launches {k1.launches}, dw "
+        f"{k1.dw_launches}, K3 {k3.launches}; {card_line()}")
+    check(len(rows) == len(records) == 2 * 2 * 3, f"orchestrator: {len(rows)} rows")
+    check(k1.launches > 0 and k3.launches == 2, "orchestrator: GRF-Thompson did not run on K1/K3")
 
 
 def main() -> int:
@@ -1682,12 +2023,26 @@ def main() -> int:
     k4_launches += traffic_protocol(device)
     log(f"traffic protocol: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    k4_launches += traffic_dataset_path(device)
+    log(f"traffic protocol on the PEMS-BAY dataset with the GCN: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k4_launches += wind_path(device)
+    log(f"wind path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    svgp_card_against_cpu(device)
+    k4_launches += classification_path(device)
+    log(f"classification path: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     k4_row = k4_checks(device, k4_launches)
     log(f"K4 checks and timings: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     facebook_path(device)
     log(f"facebook path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    orchestrator(device)
+    log(f"orchestrator: {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row, dw_row]
 
     log(card)

@@ -24,11 +24,12 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils.config import add_config_flag, parse_with_config
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--config", default=None,
-                   help="not ported yet: YAML config files (ROADMAP Queue 1 item 14)")
+    add_config_flag(p)
     p.add_argument("--mesh-side", type=int, default=30)
     p.add_argument("--beta", type=float, default=10.0)
     p.add_argument("--amplitude", type=float, default=10.0,
@@ -47,11 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> List[Dict]:
-    args = build_parser().parse_args(argv)
-    if args.config is not None:
-        raise NotImplementedError(
-            "--config files are not ported yet (ROADMAP Queue 1 item 14); pass the flags"
-        )
+    args, _cfg = parse_with_config(build_parser(), argv)
 
     import torch
 

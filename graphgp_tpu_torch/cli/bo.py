@@ -6,8 +6,13 @@ take a synthetic generator's name or a dataset of
 ``data.database.GraphDataLoader``, read from its cache under
 ``processed_data/`` (``facebook`` ships there); the loader needs the
 directory of raw files, which ``GRAPHGP_DATA_ROOT`` names and which must
-exist. A failing cell raises: there is no retry with another implementation
-and no error row that hides a failure.
+exist. ``--config`` folds a YAML file into the flags' defaults.
+
+A graph that fails to load or preprocess adds a row ``{"graph_type",
+"error"}``, a failed (algorithm, seed) cell a row ``{"graph_type",
+"algorithm", "seed", "error"}``, and the sweep goes on; the summary leaves
+error rows out and the count of them is printed. A cell is run once: there
+is no retry with another implementation.
 
 Usage:
     python -m graphgp_tpu_torch.cli.bo --graph-type grid --n-nodes 1000000 \
@@ -22,6 +27,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils.config import add_config_flag, parse_with_config
+
 
 def gaussianize(y: np.ndarray) -> np.ndarray:
     """Rank-based inverse-normal transform of the targets."""
@@ -29,6 +36,24 @@ def gaussianize(y: np.ndarray) -> np.ndarray:
 
     ranks = stats.rankdata(y)
     return stats.norm.ppf(ranks / (len(y) + 1)).astype(np.float32)
+
+
+def _error_text(e: Exception, max_chars: int = 12000) -> str:
+    """An error row's text, keeping the tail of a long message (where a
+    compiler or allocator puts its diagnosis)."""
+    msg = f"{type(e).__name__}: {e}"
+    if len(msg) <= max_chars:
+        return msg
+    return msg[:2000] + "\n...[middle truncated]...\n" + msg[-(max_chars - 2000):]
+
+
+def _print_error(prefix: str, e: Exception, lines: int = 15) -> None:
+    body = f"{type(e).__name__}: {e}".splitlines()
+    if len(body) > lines + 1:
+        body = body[:1] + ["  ..."] + body[-lines:]
+    print(f"!! {prefix} failed:")
+    for ln in body:
+        print(f"   {ln}")
 
 
 def make_algorithm(name, data, feats, args, rng):
@@ -73,6 +98,7 @@ def load_graph(graph_type: str, n_nodes: int, seed: int) -> Dict:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
+    add_config_flag(p)
     p.add_argument("--graph-type", default="grid",
                    help="synthetic generator or dataset name")
     p.add_argument("--datasets", nargs="+", default=None,
@@ -104,7 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> List[Dict]:
-    args = build_parser().parse_args(argv)
+    args, _cfg = parse_with_config(build_parser(), argv)
 
     from ..bo import run_optimization
     from ..devices import resolve_device
@@ -118,29 +144,41 @@ def main(argv=None) -> List[Dict]:
     needs_gp = "grf_thompson" in args.algorithms
     all_records: List[Dict] = []
     for graph_type in targets:
-        data = load_graph(graph_type, args.n_nodes, args.seed)
-        objective = data["y_observed"].astype(np.float32)
-        if args.gaussianize:
-            objective = gaussianize(objective)
-        feats = None
-        if needs_gp:
-            cfg = WalkConfig(
-                walks_per_node=args.walks_per_node, p_halt=args.p_halt,
-                max_walk_length=args.max_walk_length,
-            )
-            feats = preprocess_graph(
-                data["adjacency"], cfg, seed=args.seed, cache_dir=args.cache_dir,
-                layout="auto", device=args.device,
-            )
+        try:
+            data = load_graph(graph_type, args.n_nodes, args.seed)
+            objective = data["y_observed"].astype(np.float32)
+            if args.gaussianize:
+                objective = gaussianize(objective)
+            feats = None
+            if needs_gp:
+                cfg = WalkConfig(
+                    walks_per_node=args.walks_per_node, p_halt=args.p_halt,
+                    max_walk_length=args.max_walk_length,
+                )
+                feats = preprocess_graph(
+                    data["adjacency"], cfg, seed=args.seed, cache_dir=args.cache_dir,
+                    layout="auto", device=args.device,
+                )
+        except Exception as e:  # noqa: BLE001 -- the sweep goes on, the row records it
+            _print_error(f"{graph_type}: data/preprocess", e)
+            all_records.append({"graph_type": graph_type, "error": _error_text(e)})
+            continue
         for algo_name in args.algorithms:
             for seed in seeds:
-                rng = np.random.default_rng(seed)
-                algo = make_algorithm(algo_name, data, feats, args, rng)
-                print(f"== {graph_type} {algo_name} seed={seed} ==")
-                result = run_optimization(
-                    algo, objective, n_iterations=args.iterations,
-                    initial_points=args.initial_points, batch_size=args.batch_size, seed=seed,
-                )
+                try:
+                    rng = np.random.default_rng(seed)
+                    algo = make_algorithm(algo_name, data, feats, args, rng)
+                    print(f"== {graph_type} {algo_name} seed={seed} ==")
+                    result = run_optimization(
+                        algo, objective, n_iterations=args.iterations,
+                        initial_points=args.initial_points, batch_size=args.batch_size,
+                        seed=seed,
+                    )
+                except Exception as e:  # noqa: BLE001 -- as above
+                    _print_error(f"{graph_type}/{algo_name}/seed={seed}", e)
+                    all_records.append({"graph_type": graph_type, "algorithm": algo_name,
+                                        "seed": seed, "error": _error_text(e)})
+                    continue
                 for rec in result.records:
                     rec.update({"algorithm": algo_name, "seed": seed,
                                 "graph_type": graph_type, "n_nodes": objective.shape[0]})
@@ -149,9 +187,14 @@ def main(argv=None) -> List[Dict]:
                       f"regret={result.records[-1]['regret']:.4f}")
 
     path = save_results(all_records, args.results_dir, "bo", config=vars(args))
-    final = [r for r in all_records if r.get("iteration") == args.iterations]
+    final = [
+        r for r in all_records if r.get("iteration") == args.iterations and "error" not in r
+    ]
     if final:
         print_summary(final, ["graph_type", "algorithm"], ["best_value", "regret"])
+    n_err = sum("error" in r for r in all_records)
+    if n_err:
+        print(f"{n_err} sweep cell(s) failed; error rows recorded")
     print(f"results -> {path}")
     return all_records
 

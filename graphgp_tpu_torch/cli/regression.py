@@ -9,7 +9,12 @@ PoFM-diffusion fit's hyperparameters with no refit: as walks_per_node grows
 its RMSE converges to the ``pofm_diffusion`` row's by construction.
 
 Graphs: the shipped PEMS sensor graph (``--pems-npz
-processed_data/pems_bay.npz``) or a synthetic generator (``--graph-type``).
+processed_data/pems_bay.npz``), a synthetic generator (``--graph-type``), or
+a dataset of ``data.database.GraphDataLoader`` by name (``--graph-type
+pems_bay`` reads the same shipped file as its cache; the loader needs the
+directory that ``GRAPHGP_DATA_ROOT`` names to exist). ``--gnn-baseline``
+adds a GCN row per seed (``baselines/gnn.py``); ``--config`` folds a YAML
+file into the flags' defaults.
 Step matrices come from ``kernels.features_for_adjacency``: on the card, the
 fused walk kernel (K4). Walk seeds are ``42 + seed``, the JAX script's
 ``PRNGKey(42 + seed)``.
@@ -17,6 +22,8 @@ fused walk kernel (K4). Walk seeds are ``42 + seed``, the JAX script's
 Usage:
     python -m graphgp_tpu_torch.cli.regression --pems-npz processed_data/pems_bay.npz
     python -m graphgp_tpu_torch.cli.regression --graph-type grid --n-nodes 900 --walks 10 100 1000
+    GRAPHGP_DATA_ROOT=<an existing directory> python -m graphgp_tpu_torch.cli.regression \
+        --graph-type pems_bay --obs-noise 0.45 --gnn-baseline
     python -m graphgp_tpu_torch.cli.regression --device cpu --n-nodes 64 --num-train 40 --seeds 1
 """
 from __future__ import annotations
@@ -26,11 +33,12 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils.config import add_config_flag, parse_with_config
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--config", default=None,
-                   help="not ported yet: YAML config files (ROADMAP Queue 1 item 14)")
+    add_config_flag(p)
     p.add_argument("--graph-type", default="grid")
     p.add_argument("--pems-npz", default=None,
                    help="pre-built PEMS traffic graph npz (CSR triplets A_* + X, y); "
@@ -51,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replace the dataset targets with a GP sample from "
                         "exp(−BETA·L) on the loaded graph (seeded once, shared across seeds)")
     p.add_argument("--gnn-baseline", action="store_true",
-                   help="not ported yet: the GCN regression baseline (ROADMAP Queue 1 item 14)")
+                   help="also train the GCN regression baseline")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--results-dir", default="artifacts/results")
@@ -59,16 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> List[Dict]:
-    args = build_parser().parse_args(argv)
-    if args.config is not None:
-        raise NotImplementedError(
-            "--config files are not ported yet (ROADMAP Queue 1 item 14); pass the flags"
-        )
-    if args.gnn_baseline:
-        raise NotImplementedError(
-            "--gnn-baseline: the GCN baseline (baselines/gnn.py) is not ported yet "
-            "(ROADMAP Queue 1 item 14)"
-        )
+    args, _cfg = parse_with_config(build_parser(), argv)
 
     import torch
 
@@ -92,11 +91,9 @@ def main(argv=None) -> List[Dict]:
     elif args.graph_type in synthetic.GENERATORS:
         data = synthetic.generate(args.graph_type, args.n_nodes, seed=0)
     else:
-        raise NotImplementedError(
-            f"--graph-type {args.graph_type!r} needs the dataset loader "
-            "(data/database.py GraphDataLoader), which is not ported yet (ROADMAP Queue 1 "
-            f"item 14); synthetic types: {sorted(synthetic.GENERATORS)}"
-        )
+        from ..data.database import GraphDataLoader
+
+        data = GraphDataLoader()(args.graph_type)
 
     n = data["y_observed"].shape[0]
     if args.gp_field is not None:
@@ -207,6 +204,16 @@ def main(argv=None) -> List[Dict]:
             pofm_params[kind] = pres.params
             ppost = exact.predict(pofm, pres.params, tr, yv[tr], te, kind=kind)
             row(f"pofm_{kind}", 0, ppost, pres.params, -float(pres.losses[-1]))
+
+        if args.gnn_baseline:
+            from ..baselines import fit_gcn
+
+            gres = fit_gcn(adj, tr, yv[tr], num_steps=args.train_steps * 2,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+            g_rmse = float(torch.sqrt(torch.mean((gres.predictions[te] - yv[te]) ** 2)))
+            records.append({"seed": seed, "kernel": "gcn", "walks_per_node": 0,
+                            "lml": float("nan"), "rmse": g_rmse, "nlpd": float("nan")})
+            print(f"seed={seed} gcn: rmse={g_rmse:.4f}")
 
         # GRF sweeps
         for wpn in args.walks:

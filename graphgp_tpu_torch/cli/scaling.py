@@ -27,6 +27,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils.config import add_config_flag, parse_with_config
+
 
 def _walk_config(args):
     from ..walker import WalkConfig
@@ -216,6 +218,7 @@ def fit_exponents(records: List[Dict]) -> List[Dict]:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
+    add_config_flag(p)
     p.add_argument("--sizes", type=int, nargs="+", default=[256, 1024, 4096])
     p.add_argument("--gp-sizes", type=int, nargs="+", default=None,
                    help="sizes for the GP phases (default: same as --sizes)")
@@ -242,7 +245,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> List[Dict]:
-    args = build_parser().parse_args(argv)
+    args, _cfg = parse_with_config(build_parser(), argv)
 
     from ..devices import resolve_device
     from ..utils.io import save_results

@@ -31,10 +31,34 @@ def params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, to
     unknown = set(params) - set(PARAM_NAMES)
     if unknown:
         raise ValueError(f"unknown parameter names {sorted(unknown)}; expected {PARAM_NAMES}")
-    return {
-        k: torch.as_tensor(np.asarray(v, dtype=np.float32)).to(device)
-        for k, v in params.items()
-    }
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
+            for k, v in params.items()}
+
+
+def svgp_params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+    """A JAX SVGP parameter dict: the kernel's parameters (as
+    :func:`params_from_jax`) plus ``q_mu`` (M, C) and ``q_sqrt`` (C, M, M),
+    as float32 tensors."""
+    variational = {k: params[k] for k in ("q_mu", "q_sqrt")}
+    m, c = np.shape(variational["q_mu"])
+    if np.shape(variational["q_sqrt"]) != (c, m, m):
+        raise ValueError(f"q_sqrt {np.shape(variational['q_sqrt'])} does not match q_mu {(m, c)}")
+    out = params_from_jax({k: v for k, v in params.items() if k not in variational}, device)
+    out.update({k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
+                for k, v in variational.items()})
+    return out
+
+
+def gcn_params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+    """A JAX GCN parameter dict (``w{i}`` (in, out) and ``b{i}`` (out,) for
+    each layer) as float32 tensors, the ``state_dict`` of
+    ``baselines.gnn.GCN``."""
+    layers = len(params) // 2
+    names = {f"{p}{i}" for i in range(layers) for p in "wb"}
+    if set(params) != names:
+        raise ValueError(f"GCN parameters {sorted(params)}; expected {sorted(names)}")
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
+            for k, v in params.items()}
 
 
 def ell_from_numpy(

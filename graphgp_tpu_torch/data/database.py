@@ -9,8 +9,11 @@ cache ``<cache_dir>/<name>.npz`` (the reference's npz layout of CSR triplets
 targets ``y``, as the shipped ``processed_data/facebook.npz`` and
 ``processed_data/pems_bay.npz`` hold them) when it is there; otherwise from
 its raw file under ``data_root``, which is then cached. Nothing is
-downloaded: a missing raw file raises, naming the path it expected. The Cora
-loaders are not ported yet.
+downloaded: a missing raw file raises, naming the path it expected.
+``load_cora`` reads ``cora.cites`` / ``cora.content`` with the ``csv``
+module, typing each column as pandas infers it (so nodes order as in the
+JAX package), and ``load_cora_graphml`` reads the labelled GraphML export
+with ``xml.etree``.
 """
 from __future__ import annotations
 
@@ -224,3 +227,106 @@ class GraphDataLoader:
         }
         self._memory_cache[name] = out
         return out
+
+
+def _split(n: int, num_train: int, num_test: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Random train / test node ids (sorted) from ``default_rng(seed)``; an
+    80/20 split of what is there when the graph is smaller than asked."""
+    if num_train + num_test > n:
+        num_train = min(num_train, int(n * 0.8))
+        num_test = n - num_train
+    perm = np.random.default_rng(seed).permutation(n)
+    train_idx = np.sort(perm[:num_train]).astype(np.int32)
+    test_idx = np.sort(perm[num_train : num_train + num_test]).astype(np.int32)
+    return train_idx, test_idx
+
+
+def load_cora_graphml(path: str, num_train: int = 1988, num_test: int = 497, seed: int = 0):
+    """Cora's largest connected component from a GraphML export whose nodes
+    carry a ``ground_truth`` label (the reference's ``cora_result.graphml``).
+    Returns (adjacency_csr, labels, train_idx, test_idx)."""
+    import xml.etree.ElementTree as ET
+
+    ns = {"g": "http://graphml.graphdrawing.org/xmlns"}
+    root = ET.parse(path).getroot()
+    label_key = None
+    for k in root.findall("g:key", ns):
+        if k.get("attr.name") == "ground_truth":
+            label_key = k.get("id")
+    if label_key is None:
+        raise ValueError(f"{path}: no 'ground_truth' node attribute")
+    graph = root.find("g:graph", ns)
+    ids, raw_labels = [], []
+    for nd in graph.findall("g:node", ns):
+        ids.append(nd.get("id"))
+        val = np.nan
+        for d in nd.findall("g:data", ns):
+            if d.get("key") == label_key:
+                val = float(d.text)
+        raw_labels.append(val)
+    id_map = {s: i for i, s in enumerate(ids)}
+    n = len(ids)
+    us = np.asarray([id_map[e.get("source")] for e in graph.findall("g:edge", ns)], np.int64)
+    vs = np.asarray([id_map[e.get("target")] for e in graph.findall("g:edge", ns)], np.int64)
+    keep = us != vs
+    us, vs = us[keep], vs[keep]
+    adj = sp.coo_matrix(
+        (np.ones(us.size * 2), (np.concatenate([us, vs]), np.concatenate([vs, us]))),
+        shape=(n, n),
+    ).tocsr()
+    adj.data[:] = 1.0
+    classes = {v: i for i, v in enumerate(sorted(set(raw_labels)))}
+    labels = np.asarray([classes[v] for v in raw_labels], np.int32)
+    return (adj, labels, *_split(n, num_train, num_test, seed))
+
+
+def _typed_column(values):
+    """A text column typed as pandas' ``read_csv`` infers it: int64 when every
+    entry is an integer, else float64 when every entry is a number, else
+    the strings."""
+    for kind in (int, float):
+        try:
+            return np.asarray([kind(v) for v in values])
+        except ValueError:
+            continue
+    return np.asarray(values, dtype=object)
+
+
+def _read_tsv(path: str):
+    with open(path, newline="") as fh:
+        return [row for row in csv.reader(fh, delimiter="\t") if row]
+
+
+def load_cora(data_dir: str, num_train: int = 1988, num_test: int = 497, seed: int = 0):
+    """Cora citation graph: its largest connected component, 7-class labels
+    (the reference's ``load_cora``), from ``cora.cites`` (cited, citing) and
+    ``cora.content`` (id, features..., subject) under ``data_dir``. Without
+    ``cora.content`` but with a labelled ``cora_result.graphml`` there, reads
+    that instead (:func:`load_cora_graphml`). Nodes of the component with no
+    content row get class 0, as in the JAX package. Returns (adjacency_csr,
+    labels, train_idx, test_idx)."""
+    content_path = os.path.join(data_dir, "cora.content")
+    graphml_path = os.path.join(data_dir, "cora_result.graphml")
+    if not os.path.exists(content_path) and os.path.exists(graphml_path):
+        return load_cora_graphml(graphml_path, num_train, num_test, seed)
+
+    cites = _read_tsv(os.path.join(data_dir, "cora.cites"))
+    target = _typed_column([r[0] for r in cites])
+    source = _typed_column([r[1] for r in cites])
+    adj_all, nodes = edges_to_csr(source, target)
+
+    _, comp = sp.csgraph.connected_components(adj_all, directed=False)
+    keep = np.flatnonzero(comp == np.argmax(np.bincount(comp)))
+    adj = adj_all[keep][:, keep].tocsr()
+    kept_nodes = nodes[keep]
+
+    content = _read_tsv(content_path)
+    index = _typed_column([r[0] for r in content])
+    subjects = _typed_column([r[-1] for r in content])
+    classes = {c: i for i, c in enumerate(sorted(set(subjects.tolist())))}
+    subject_by_node = dict(zip(index.tolist(), subjects.tolist()))
+    labels = np.zeros(keep.size, dtype=np.int32)
+    for i, node in enumerate(kept_nodes.tolist()):
+        if node in subject_by_node:
+            labels[i] = classes[subject_by_node[node]]
+    return (adj, labels, *_split(keep.size, num_train, num_test, seed))

@@ -1,6 +1,7 @@
 """GP inference on GRF graph kernels: exact (Cholesky) for small N, the exact
-spectral diffusion GP, and iterative CG + SLQ marginal likelihood with
-pathwise-conditioning prediction for large N."""
+spectral diffusion GP, iterative CG + SLQ marginal likelihood with
+pathwise-conditioning prediction for large N, and variational (SVGP)
+classification."""
 
-from . import exact, iterative, params, spectral
+from . import exact, iterative, params, spectral, svgp
 from .iterative import CGSettings, pathwise_predict, summarize_samples

@@ -1,7 +1,7 @@
 """The dense-regime CLIs of the port, end to end on the CPU at a tiny size
 (``--device cpu``: K4's plain version), and what surrounds them:
 ``data/database._load_csr_npz`` and ``utils/io.compute_fro`` against the JAX
-package, and each option that is not ported yet raising by name.
+package.
 
 The CLIs fit with ``torch.optim.LBFGS``, whose line search differs from
 optax's, so they are held to what the protocols claim (finite metrics, every
@@ -132,18 +132,6 @@ def test_regression_cli_gp_field(tmp_path):
                             "--max-walk-length", "4", "--gp-field", "2.0", "--obs-noise", "0",
                             "--results-dir", str(tmp_path)])
     assert len(recs) == 6 and all(np.isfinite(r["nlpd"]) for r in recs)
-
-
-@pytest.mark.parametrize("cli,argv,match", [
-    (ablation, ["--config", "x.yaml"], "item 14"),
-    (regression, ["--config", "x.yaml"], "item 14"),
-    (regression, ["--gnn-baseline"], "item 14"),
-    (regression, ["--graph-type", "cora"], "item 14"),
-], ids=["ablation-config", "regression-config", "gnn-baseline", "dataset-graph-type"])
-def test_left_out_options_raise_by_name(cli, argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--device", "cpu", "--results-dir", str(tmp_path), *argv])
-    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("cli", [ablation, regression], ids=["ablation", "regression"])

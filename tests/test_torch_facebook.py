@@ -12,6 +12,7 @@ card and agree with the CPU within float32 summation order (1e-5 of max
 """
 import gzip
 import os
+import re
 
 import numpy as np
 import pytest
@@ -211,9 +212,11 @@ def test_bo_cli_runs_grf_thompson_on_facebook_on_the_cpu(data_root, tmp_path):
 def test_bo_cli_unknown_graph_type_names_both_kinds(data_root, tmp_path):
     from graphgp_tpu_torch.cli.bo import main
 
-    with pytest.raises(ValueError, match="datasets:.*facebook"):
-        main(["--graph-type", "nope", "--algorithms", "random_search", "--device", "cpu",
-              "--results-dir", str(tmp_path)])
+    recs = main(["--graph-type", "nope", "--algorithms", "random_search", "--device", "cpu",
+                 "--results-dir", str(tmp_path)])
+    assert len(recs) == 1 and set(recs[0]) == {"graph_type", "error"}
+    assert recs[0]["graph_type"] == "nope"
+    assert re.search(r"ValueError: .*synthetic generators:.*datasets:.*facebook", recs[0]["error"])
 
 
 # ---------------------------------------------------------------------------
