@@ -5,10 +5,10 @@ Drives the port's main paths on one CUDA card, the million-node GRF-Thompson
 BO flagship, the scaling experiment with full-space prediction, the
 dense-regime protocols (ablation and traffic regression, the latter also on
 the PEMS-BAY dataset with the GCN baseline), the wind protocol, SVGP
-classification, GRF-Thompson on the shipped facebook graph and the
-orchestrator, fails if any record of any phase carries an error, and holds each
-hand-written kernel of those paths against its plain PyTorch version on the
-paths' own tensors:
+classification, GRF-Thompson on the shipped facebook graph, the
+orchestrator, Laplace-whitened HMC and the multi-device path, fails if any
+record of any phase carries an error, and holds each hand-written kernel of
+those paths against its plain PyTorch version on the paths' own tensors:
 
   1. prints the card's name and power limit, builds the kernels (one nvcc
      per source, in parallel) and prints ptxas's registers and spills of K1,
@@ -91,7 +91,30 @@ paths' own tensors:
      beside the JAX records on real Cora;
  11. the orchestrator, graphgp_tpu_torch.cli.run_all over circle and grid at
      4096 nodes, random search and GRF-Thompson, 3 iterations: no error row,
-     bo_all_graphs.csv written, K1 and K3 launched.
+     bo_all_graphs.csv written, K1 and K3 launched;
+ 12. Laplace-whitened HMC over the GP's hyperparameters:
+     graphgp_tpu_torch.cli.hmc.main at the JAX driver's defaults (grid N
+     400, walks 500, L 5, diffusion, 4 chains, 200 warmup + 300 samples, 48
+     leapfrog steps), K4's counter zeroed just before and read just after
+     (1 launch): seconds by stage (features, ML-II fit, refine, sampling,
+     prediction), batched gradient evaluations a second, and the guards:
+     every split R-hat below 1.1, every adapted step size above 0.01, every
+     chain's accept rate above 0.2, finite posterior-averaged RMSE and NLPD,
+     beta's spread above 0 (K4 at this shape is in phase 8's checks); then
+     card against CPU on the driver's posterior built as the CLI builds it
+     (on the CPU, the same step matrices on both): the log posterior and its
+     gradient, its Hessian's clipped covariance, and HMC_CHECK_ITERS
+     iterations of the sampler on the whitened target at the step sizes the
+     driver adapted, under the same draws, every accept decision equal and
+     those within HMC_MARGIN of their threshold reported;
+ 13. the multi-device path on the one card, an NCCL group of world size 1 at
+     the multichip CLI's defaults (ring N 32768, walks 100, L 3): the sharded
+     walk bit-identical to sample_walk_log, the distributed Gram CG on
+     LogFeatures against the single-device CG (4096 train, B 8, 50
+     iterations at tol 0, two all-reduces a matvec), then
+     graphgp_tpu_torch.cli.multichip.main with --devices 1 (one spawned rank):
+     walks/s and CG iterations/s, that card's throughput, not a scaling
+     measurement.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -107,7 +130,8 @@ facebook cell runs uncut (FB_ITERATIONS iterations, both of FB_SEEDS). The
 PEMS-BAY dataset run takes 1 seed of 3 and walks 1024 of the record's
 1..8192; wind 1 seed of 3 at the CLI's 300 Adam steps (the JAX record ran
 1000) and walks WIND_WALKS; classification 1 seed of 5; the orchestrator 1
-run of 3 iterations at 4096 nodes. Widths are the protocols' own.
+run of 3 iterations at 4096 nodes; HMC and the multi-device path run uncut.
+Widths are the protocols' own.
 """
 from __future__ import annotations
 
@@ -221,6 +245,31 @@ PEMS_BAY_OBS_NOISE = 0.45
 PEMS_BAY_WALKS = 1024
 RUN_ALL_ARGV = ["--graph-types", "circle", "grid", "--n-nodes", "4096", "--runs", "1",
                 "--iterations", "3", "--algorithms", "random_search", "grf_thompson"]
+
+# This slice's cells: Laplace-whitened HMC at the JAX driver's defaults (grid
+# N 400, walks 500, p_halt 0.1, L 5, diffusion, 4 chains, 200 warmup + 300
+# samples, 48 leapfrog steps), and the multi-device path on one card at the
+# multichip CLI's defaults (ring N 32768, walks 100, L 3, 4096 train, B 8,
+# 50 CG iterations).
+HMC_ARGV = []  # cli.hmc's defaults
+HMC_CHAINS = 4
+HMC_CHECK_ITERS = 20  # card against CPU: iterations of the sampler under the same draws
+# card against CPU, relative to max |ref|: the log posterior, its gradient
+# and the sampler's trajectory go through a float32 Cholesky of 200 rows in
+# two libraries (cuSOLVER, LAPACK); the Hessian through forward-over-reverse
+# derivatives of it
+REL_TOL_HMC = 1e-4
+REL_TOL_HMC_HESSIAN = 1e-3
+REL_TOL_HMC_TRAJECTORY = 1e-3
+HMC_MARGIN = 1e-3  # nats: accept decisions this close to their threshold are reported
+HMC_RHAT_MAX = 1.1
+HMC_STEP_MIN = 0.01
+HMC_ACCEPT_MIN = 0.2
+MULTI_N, MULTI_WPN, MULTI_L = 32768, 100, 3
+MULTI_TRAIN, MULTI_BATCH, MULTI_CG_ITERS = 4096, 8, 50
+# the distributed CG against the single-device CG, 50 iterations at tol 0:
+# float32 sums in another order (the transposed product adds by atomics)
+REL_TOL_MULTI_CG = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1696,6 +1745,9 @@ def k4_checks(device, launches: int) -> dict:
     k4_check("classification, community graph at Cora's shape",
              pack_laplacian(community).to(device), 42, WalkConfig(4096, 0.1, 5), reps=10,
              plain_reps=1)
+    k4_check("HMC driver, 20x20 grid", pack_laplacian(
+        synthetic.generate("grid", 400, seed=0)["adjacency"]).to(device), 42,
+        WalkConfig(500, 0.1, 5), reps=20, plain_reps=3)
     big = synthetic.generate("grid", 4096, seed=0)["adjacency"]
     k4_check("edge of the regime, 64x64 grid", pack_laplacian(big).to(device), 7,
              WalkConfig(8192, 0.1, 10), reps=10, plain_reps=1)
@@ -1944,6 +1996,233 @@ def orchestrator(device) -> None:
     check(k1.launches > 0 and k3.launches == 2, "orchestrator: GRF-Thompson did not run on K1/K3")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: Laplace-whitened HMC over the GP's hyperparameters (K4 once)
+# ---------------------------------------------------------------------------
+
+
+def hmc_card_against_cpu(device, steps) -> None:
+    """The HMC driver's posterior as cli.hmc builds it (``build_problem`` on
+    the CPU: ML-II fit, raw_noise anchored at its ML-II value, the mode
+    refined by L-BFGS), card against CPU on the same step matrices: the log
+    posterior and its gradient 0.1 off the mode (rel REL_TOL_HMC), the
+    Hessian's clipped covariance at the mode (REL_TOL_HMC_HESSIAN), and
+    HMC_CHECK_ITERS iterations of the sampler on the Laplace-whitened target
+    at the step sizes the driver adapted on the card (``steps``, one a
+    chain, jittered as the driver jitters them) under the same draws
+    (REL_TOL_HMC_TRAJECTORY, every accept decision equal; a decision within
+    HMC_MARGIN nats of its threshold, where float32 rounding could flip it,
+    is reported)."""
+    import torch
+
+    from graphgp_tpu_torch.cli import hmc as hmc_cli
+    from graphgp_tpu_torch.features import DenseFeatures
+    from graphgp_tpu_torch.gp import hmc
+
+    d = hmc_cli.build_parser().parse_args(HMC_ARGV)
+    prob = hmc_cli.build_problem(d, "cpu")
+    lp_cpu, params = prob.log_post, prob.mode
+    lp_card = hmc_cli.gp_log_posterior(
+        DenseFeatures(prob.feats.step_matrices.to(device)), prob.tr.to(device),
+        prob.y[prob.tr].to(device), d.kind, d.prior_std, float(prob.fit.params["raw_noise"]))
+
+    def value_and_grad(lp, dev):
+        # off the mode, where the gradient is not ~0
+        p = {k: (v + 0.1).to(dev).requires_grad_(True) for k, v in params.items()}
+        val = lp(p)
+        grads = torch.autograd.grad(val, list(p.values()))
+        return val.detach().cpu(), torch.stack([g.cpu() for g in grads])
+
+    (v_c, g_c), (v_g, g_g) = value_and_grad(lp_cpu, "cpu"), value_and_grad(lp_card, device)
+    _, rel_v = rel_err(v_g, v_c)
+    _, rel_g = rel_err(g_g, g_c)
+    flat_c, sqrt_c, spec = hmc.laplace_whitening(lp_cpu, params)
+    _, sqrt_g, _ = hmc.laplace_whitening(lp_card, {k: v.to(device) for k, v in params.items()})
+    _, rel_h = rel_err((sqrt_g @ sqrt_g.T).cpu(), sqrt_c @ sqrt_c.T)
+
+    cfg = hmc.HMCConfig(num_warmup=0, num_samples=HMC_CHECK_ITERS, num_leapfrog=d.num_leapfrog,
+                        initial_step_size=1.0)
+    draws = hmc.draw(HMC_CHAINS, HMC_CHECK_ITERS, flat_c.numel(), torch.Generator().manual_seed(0),
+                     step_jitter=d.step_jitter)
+    scale = torch.ones_like(draws.uniform) if draws.step_scale is None else draws.step_scale
+    draws = draws._replace(step_scale=torch.as_tensor(steps, dtype=torch.float32)[:, None] * scale)
+
+    def run(lp, dev):
+        f0, s0 = flat_c.to(dev), sqrt_c.to(dev)
+        return hmc.sample(lambda zp: lp(hmc._unflatten(f0 + s0 @ zp["z"], spec)),
+                          {"z": torch.zeros(flat_c.numel(), device=dev)}, config=cfg,
+                          num_chains=HMC_CHAINS, draws=draws)
+
+    res_c, res_g = run(lp_cpu, "cpu"), run(lp_card, device)
+    _, rel_z = rel_err(res_g.samples["z"].cpu(), res_c.samples["z"])
+    _, rel_lp = rel_err(res_g.log_probs.cpu(), res_c.log_probs)
+    log_u = torch.log(draws.uniform.double())
+    log_a = torch.log(res_c.accept_trace.double())
+    acc_c = log_u < log_a
+    acc_g = log_u < torch.log(res_g.accept_trace.double().cpu())
+    margin = (log_u - log_a).abs()
+    close = [(int(c), int(t), float(margin[c, t])) for c, t in torch.nonzero(margin < HMC_MARGIN)]
+    log(f"HMC card against CPU (the driver's posterior, built on the CPU: grid N {d.n_nodes}, "
+        f"{prob.tr.numel()} train, {d.kind}, raw_noise anchored at "
+        f"{float(prob.fit.params['raw_noise']):.4f}): log posterior rel {rel_v:.2e}, gradient rel "
+        f"{rel_g:.2e}, Laplace covariance rel {rel_h:.2e}; {HMC_CHECK_ITERS} iterations x "
+        f"{HMC_CHAINS} chains at the driver's adapted step sizes {[round(float(e), 4) for e in steps]}"
+        f" (jitter {d.step_jitter}), {d.num_leapfrog} leapfrog steps: z rel {rel_z:.2e}, log probs "
+        f"rel {rel_lp:.2e}, accept decisions equal {bool(torch.equal(acc_c, acc_g))} "
+        f"({int(acc_c.sum())} accepts, {int((~acc_c).sum())} rejections; smallest margin "
+        f"{float(margin.min()):.2e} nats; within {HMC_MARGIN} of the threshold (chain, iteration, "
+        f"margin): {close})")
+    check(rel_v <= REL_TOL_HMC and rel_g <= REL_TOL_HMC,
+          f"HMC: log posterior rel {rel_v}, gradient rel {rel_g}")
+    check(rel_h <= REL_TOL_HMC_HESSIAN, f"HMC: Laplace covariance rel {rel_h}")
+    check(torch.equal(acc_c, acc_g), "HMC: accept decisions differ between card and CPU")
+    check(float(acc_c.double().mean()) >= 0.5,
+          f"HMC: only {float(acc_c.double().mean())} of the check's proposals accepted")
+    check(rel_z <= REL_TOL_HMC_TRAJECTORY and rel_lp <= REL_TOL_HMC_TRAJECTORY,
+          f"HMC: trajectory rel {rel_z}, log probs rel {rel_lp}")
+
+
+def hmc_path(device):
+    """cli.hmc.main at the JAX driver's defaults on the card: seconds by stage,
+    batched gradient evaluations per second, K4 once, and the guards (split
+    R-hat, adapted step sizes, accept rates, finite predictive metrics,
+    beta's spread). Returns (K4 launches, the adapted step sizes)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphgp_tpu_torch import kernels
+    from graphgp_tpu_torch.cli import hmc as hmc_cli
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+    from graphgp_tpu_torch.gp import exact, hmc
+
+    d = hmc_cli.build_parser().parse_args(HMC_ARGV)
+    log(f"HMC: cli.hmc at the JAX driver's defaults (grid N {d.n_nodes}, walks {d.walks_per_node}, "
+        f"p_halt {d.p_halt}, L {d.max_walk_length}, {d.kind}, {d.num_chains} chains, "
+        f"{d.num_warmup} warmup + {d.num_samples} samples, {d.num_leapfrog} leapfrog steps, "
+        f"eps0 {d.initial_step_size}, step jitter {d.step_jitter}); no depth cut")
+    totals, _, restore = _timed_calls({
+        "features": (kernels, "features_for_adjacency"), "ML-II fit": (exact, "fit"),
+        "refine": (hmc, "refine_mode"), "sampling": (hmc, "sample_laplace"),
+        "prediction": (hmc_cli, "posterior_average")})
+    sampled = []
+    timed_sample = hmc.sample_laplace
+    hmc.sample_laplace = lambda *a, **kw: sampled.append(timed_sample(*a, **kw)) or sampled[-1]
+    evals0 = hmc.gradient_evaluations
+    k4.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as results_dir:
+            records = hmc_cli.main([*HMC_ARGV, "--device", device, "--results-dir", results_dir])
+    finally:
+        hmc.sample_laplace = timed_sample
+        restore()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = k4.launches
+    evals = hmc.gradient_evaluations - evals0
+    check_no_error_rows("HMC", records)
+    by = {r["quantity"]: r["value"] for r in records}
+    res = sampled[0]
+    steps = res.step_size.cpu().numpy()
+    acc = res.accept_rate.cpu().numpy()
+    rhats = {k: v for k, v in by.items() if k.startswith("rhat_")}
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in totals.items())
+    log(f"HMC: {total_s:.2f} s in all ({stages}); {evals} batched gradient evaluations "
+        f"({d.num_chains} chains each) in sampling, {evals / totals['sampling']:.1f} a second; "
+        f"K4 launches {launches}; {card_line()}")
+    log(f"HMC: point rmse / nlpd {by['point_rmse']:.4f} / {by['point_nlpd']:.4f}, posterior-"
+        f"averaged {by['bayes_rmse']:.4f} / {by['bayes_nlpd']:.4f}; split R-hat "
+        f"{ {k: round(v, 3) for k, v in rhats.items()} }; step sizes {np.round(steps, 4).tolist()}; "
+        f"accept rates {np.round(acc, 3).tolist()}; beta {by['beta_mean']:.3f} +- {by['beta_std']:.3f}")
+    check(launches == 1, f"HMC: {launches} K4 launches")
+    check(all(v < HMC_RHAT_MAX for v in rhats.values()), f"HMC: split R-hat {rhats}")
+    check(bool((steps > HMC_STEP_MIN).all()), f"HMC: adapted step sizes {steps}")
+    check(bool((acc > HMC_ACCEPT_MIN).all()), f"HMC: accept rates {acc}")
+    check(np.isfinite(by["bayes_rmse"]) and np.isfinite(by["bayes_nlpd"]),
+          "HMC: posterior-averaged metrics not finite")
+    check(by["beta_std"] > 0, "HMC: beta_std is 0")
+    return launches, steps
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device path on one card (an NCCL group of world size 1)
+# ---------------------------------------------------------------------------
+
+
+def multi_device_path(device) -> None:
+    """At the multichip CLI's defaults, on an NCCL group of world size 1 in
+    this process: sharded_walk_log bit-identical to sample_walk_log, and
+    distributed_gram_solve on LogFeatures against the single-device CG (50
+    iterations at tol 0, two all-reduces a matvec); then cli.multichip.main
+    with --devices 1 (one spawned rank): the card's walks/s and CG
+    iterations/s, not a scaling measurement."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from graphgp_tpu_torch import shard
+    from graphgp_tpu_torch.cli import multichip
+    from graphgp_tpu_torch.data.synthetic import generate_ring_data
+    from graphgp_tpu_torch.features import LogFeatures
+    from graphgp_tpu_torch.gp import params as P
+    from graphgp_tpu_torch.gp.iterative import make_ktt_matvec
+    from graphgp_tpu_torch.graphs import pack_laplacian
+    from graphgp_tpu_torch.linalg import batched_cg
+    from graphgp_tpu_torch.walker import WalkConfig, sample_walk_log
+
+    graph = pack_laplacian(generate_ring_data(MULTI_N, seed=0)["adjacency"]).to(device)
+    cfg = WalkConfig(MULTI_WPN, 0.1, MULTI_L)
+    with tempfile.TemporaryDirectory() as store:
+        shard.init_process_group(0, 1, os.path.join(store, "store"), device)
+        try:
+            mesh = shard.make_mesh(1)
+            t0 = time.perf_counter()
+            walked = shard.sharded_walk_log(graph, 0, cfg, mesh)
+            torch.cuda.synchronize()
+            walk_s = time.perf_counter() - t0
+            plain = sample_walk_log(graph, 0, cfg)
+            same = torch.equal(walked.curs, plain.curs) and torch.equal(walked.loads, plain.loads)
+            feats = LogFeatures(plain, num_target_nodes=MULTI_N)
+            params = P.init_params("free", MULTI_L, generator=torch.Generator().manual_seed(1))
+            rng = np.random.default_rng(0)
+            idx = torch.from_numpy(np.sort(rng.choice(MULTI_N, MULTI_TRAIN, replace=False)))
+            b = torch.from_numpy(rng.normal(size=(MULTI_TRAIN, MULTI_BATCH)).astype(np.float32))
+            before = shard.all_reduces
+            x = shard.distributed_gram_solve(feats, params, idx, b, mesh, tol=0.0,
+                                             max_iters=MULTI_CG_ITERS)
+            reduces = shard.all_reduces - before
+        finally:
+            dist.destroy_process_group()
+    ref = batched_cg(make_ktt_matvec("free"), ({k: v.to(device) for k, v in params.items()},
+                                                feats, idx.to(device)),
+                     b.to(device), tol=0.0, max_iters=MULTI_CG_ITERS, batch_axis=1)
+    _, rel = rel_err(x, ref.x)
+    log(f"multi-device (NCCL, world 1): ring N {MULTI_N}, wpn {MULTI_WPN}, L {MULTI_L}: sharded "
+        f"walk {walk_s:.3f} s, bit-identical to sample_walk_log {same}; distributed CG on "
+        f"LogFeatures ({MULTI_TRAIN} train, B {MULTI_BATCH}, {MULTI_CG_ITERS} iterations at tol 0) "
+        f"against single-device CG ({ref.iterations} iterations): rel {rel:.2e}, {reduces} "
+        f"all-reduces")
+    check(same, "multi-device: the sharded walk differs from sample_walk_log")
+    check(rel <= REL_TOL_MULTI_CG, f"multi-device: distributed CG rel {rel}")
+    check(reduces == 2 * (MULTI_CG_ITERS + 1), f"multi-device: {reduces} all-reduces")
+    del walked, plain, feats
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as results_dir:
+        records = multichip.main(["--devices", "1", "--device", device, "--results-dir", results_dir])
+    check(len(records) == 1, f"multichip: {len(records)} records")
+    r = records[0]
+    check(np.isfinite(r["walks_per_s"]) and np.isfinite(r["cg_iters_per_s"]),
+          "multichip: throughput not finite")
+    log(f"multichip (1 rank, NCCL): {r['walks_per_s']:,.0f} walks/s ({r['walk_seconds']:.4f} s), "
+        f"{r['cg_iters_per_s']:.1f} CG iterations/s ({r['cg_seconds']:.4f} s for "
+        f"{MULTI_CG_ITERS}); one card's throughput, not a scaling measurement; {card_line()}")
+
 def main() -> int:
     import torch
 
@@ -2043,6 +2322,15 @@ def main() -> int:
     t0 = time.perf_counter()
     orchestrator(device)
     log(f"orchestrator: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, steps = hmc_path(device)
+    k4_row["launches"] += launches
+    hmc_card_against_cpu(device, steps)
+    log(f"HMC path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    multi_device_path(device)
+    log(f"multi-device path: {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row, dw_row]
 
     log(card)

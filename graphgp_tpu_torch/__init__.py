@@ -10,16 +10,26 @@ PyTorch version (``cuda_kernels/``). Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
-from .features import DenseFeatures, EllFeatures, StencilFeatures, ell_to_stencil, with_transpose
+from .features import (
+    DenseFeatures,
+    EllFeatures,
+    LogFeatures,
+    StencilFeatures,
+    ell_to_stencil,
+    with_transpose,
+)
 from .graphs import (
     CsrGraph,
     PackedGraph,
     csr_graph,
+    generate_noisy_samples,
+    laplacian,
     normalized_laplacian,
     normalized_laplacian_csr,
     pack_csr,
     pack_dense,
     pack_laplacian,
+    packed_to_dense,
 )
 from .kernels import (
     diffusion_kernel,
@@ -31,7 +41,7 @@ from .kernels import (
     grf_kernel_unbiased,
     step_matrices_for_adjacency,
 )
-from .modulators import diffusion_modulator, free_modulator_init
+from .modulators import diffusion_modulator, free_modulator_init, geometric_modulator
 from .pipeline import blocked_ell_features
 from .walker import (
     WalkConfig,

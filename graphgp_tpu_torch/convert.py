@@ -17,9 +17,11 @@ from .features import (
     DenseFeatures,
     EllFeatures,
     EllStepMatrices,
+    LogFeatures,
     StencilStepMatrices,
 )
 from .gp.spectral import Eigenbasis
+from .walker import WalkLog
 
 PARAM_NAMES = ("raw_noise", "modulator", "raw_beta", "raw_sigma_f")
 
@@ -95,6 +97,22 @@ def ell_features_from_jax(
             f"{parts[3].shape} do not match the ELL {tuple(mats.cols.shape)}"
         )
     return EllFeatures(mats, CscStepMatrices(*(torch.from_numpy(p).to(device) for p in parts)))
+
+
+def log_features_from_jax(
+    curs: np.ndarray, loads: np.ndarray, num_target_nodes: int, device="cpu"
+) -> LogFeatures:
+    """Walk-log features from the JAX package's (L, N, W) ``WalkLog`` arrays
+    (``curs`` int, ``loads`` float)."""
+    curs = np.asarray(curs)
+    loads = np.asarray(loads)
+    if curs.shape != loads.shape or curs.ndim != 3:
+        raise ValueError(f"curs {curs.shape} and loads {loads.shape} must be equal (L, N, W)")
+    return LogFeatures(
+        WalkLog(torch.from_numpy(curs.astype(np.int32)).to(device),
+                torch.from_numpy(loads.astype(np.float32)).to(device)),
+        num_target_nodes=int(num_target_nodes),
+    )
 
 
 def stencil_from_numpy(vals: np.ndarray, offsets: np.ndarray, device="cpu") -> StencilStepMatrices:

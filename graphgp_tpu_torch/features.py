@@ -1,10 +1,11 @@
-"""Step-matrix feature layouts: dense, ELL-consolidated and stencil.
+"""Step-matrix feature layouts: dense, walk-log, ELL-consolidated and stencil.
 
-Counterpart of the ELL, transpose and stencil parts of
-``graphgp_tpu/features.py``:
+Counterpart of ``graphgp_tpu/features.py``:
 
 * :class:`DenseFeatures`: dense (L, N, Nt) step matrices, the small-N regime
   of the exact GP; :func:`ell_to_dense` builds them from ELL.
+* :class:`LogFeatures`: Φ straight off the walk log (``log_phi_*``), the
+  layout of the multi-device solve.
 * :class:`EllStepMatrices`: per-row deduplicated (cols, vals) step matrices
   with a fixed row capacity, built from a walk log by one sort and a
   segment sum (:func:`consolidate`). :class:`EllFeatures` is the layout of
@@ -37,6 +38,7 @@ import torch
 
 from .cuda_kernels import stencil as k_stencil
 from .cuda_kernels import stencil_build as k_build
+from .linalg import _as_rows
 from .walker import WalkLog
 
 # Dead-lane sentinel: halted walks carry load 0. Sending their positions to
@@ -52,6 +54,113 @@ def _f32(f, device) -> torch.Tensor:
         return f.to(device=device, dtype=torch.float32)
     return torch.as_tensor(f, dtype=torch.float32, device=device)
 
+
+# ---------------------------------------------------------------------------
+# Walk-log products: Φ = Σ_l f_l M_l straight from the walk log, without
+# consolidation. The forward products gather; the transposed ones scatter-add
+# (``index_add``), which on CUDA adds floats by atomics in no fixed order, so
+# two calls agree to float32 summation order, not bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _log_weights(log: WalkLog, modulator, device) -> torch.Tensor:
+    """(L, N, W): ``f_l · load / W``."""
+    f = _f32(modulator, device)
+    return (log.loads / log.walks_per_node) * f[:, None, None]
+
+
+def log_phi_matvec(log: WalkLog, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``Φ @ v``; v (Nt,) or (Nt, B) → (N,) or (N, B)."""
+    weights = _log_weights(log, modulator, v.device)
+    gathered = v[log.curs]  # (L, N, W) or (L, N, W, B)
+    if v.dim() == 1:
+        return torch.einsum("lnw,lnw->n", weights, gathered)
+    return torch.einsum("lnw,lnwb->nb", weights, gathered)
+
+
+def log_phi_rmatvec(
+    log: WalkLog, modulator, v: torch.Tensor, num_target_nodes: int
+) -> torch.Tensor:
+    """``Φᵀ @ v``: a scatter-add of ``f_l · load · v[start]`` onto the visited
+    nodes; v (N,) or (N, B) → (Nt,) or (Nt, B)."""
+    weights = _log_weights(log, modulator, v.device)
+    idx = log.curs.reshape(-1)
+    if v.dim() == 1:
+        vals = (weights * v[None, :, None]).reshape(-1)
+        out = torch.zeros(num_target_nodes, dtype=torch.float32, device=v.device)
+        return out.index_add(0, idx, vals)
+    b = v.shape[1]
+    vals = (weights[..., None] * v[None, :, None, :]).reshape(-1, b)
+    return torch.zeros((num_target_nodes, b), dtype=torch.float32, device=v.device).index_add(
+        0, idx, vals)
+
+
+def log_phi_rows(
+    log: WalkLog, modulator, rows: torch.Tensor, num_target_nodes: int
+) -> torch.Tensor:
+    """Dense rows ``Φ[rows, :]`` (R, Nt), for K_test,train style blocks."""
+    dev = log.curs.device
+    rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+    weights = _log_weights(log, modulator, dev)[:, rows, :]  # (L, R, W)
+    curs = log.curs[:, rows, :].to(torch.int64)
+    r = rows.shape[0]
+    flat = (torch.arange(r, device=dev)[None, :, None] * num_target_nodes + curs).reshape(-1)
+    out = torch.zeros(r * num_target_nodes, dtype=torch.float32, device=dev)
+    return out.index_add(0, flat, weights.reshape(-1)).reshape(r, num_target_nodes)
+
+
+def log_phi_matvec_bm(log: WalkLog, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φᵀ`` straight from the walk log: (B, Nt) → (B, N)."""
+    weights = _log_weights(log, modulator, v.device)
+    return torch.einsum("lnw,blnw->bn", weights, v[:, log.curs])
+
+
+def log_phi_rmatvec_bm(
+    log: WalkLog, modulator, v: torch.Tensor, num_target_nodes: int
+) -> torch.Tensor:
+    """``V @ Φ``: a scatter-add onto the visited nodes, (B, N) → (B, Nt)."""
+    weights = _log_weights(log, modulator, v.device)
+    b = v.shape[0]
+    vals = weights[None] * v[:, None, :, None]  # (B, L, N, W)
+    return torch.zeros((b, num_target_nodes), dtype=torch.float32, device=v.device).index_add(
+        1, log.curs.reshape(-1), vals.reshape(b, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class LogFeatures:
+    """Φ straight off the walk log: no consolidation cost; best when only a
+    few Φ products are needed, and the layout of the multi-device solve
+    (``shard.distributed_gram_solve``)."""
+
+    log: WalkLog
+    num_target_nodes: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.log.num_nodes
+
+    @property
+    def max_walk_length(self) -> int:
+        return self.log.max_walk_length
+
+    def matvec(self, f, v):
+        return log_phi_matvec(self.log, f, v)
+
+    def rmatvec(self, f, v):
+        return log_phi_rmatvec(self.log, f, v, self.num_target_nodes)
+
+    def matvec_bm(self, f, v):
+        return log_phi_matvec_bm(self.log, f, v)
+
+    def rmatvec_bm(self, f, v):
+        return log_phi_rmatvec_bm(self.log, f, v, self.num_target_nodes)
+
+    def rows(self, f, idx):
+        return log_phi_rows(self.log, f, idx, self.num_target_nodes)
+
+    def to(self, device) -> "LogFeatures":
+        return LogFeatures(WalkLog(self.log.curs.to(device), self.log.loads.to(device)),
+                           self.num_target_nodes)
 
 @dataclasses.dataclass(frozen=True)
 class DenseFeatures:
@@ -697,10 +806,55 @@ class StencilFeatures:
     def max_walk_length(self) -> int:
         return self.mats.max_walk_length
 
+    def matvec(self, f, v):
+        return stencil_phi_matvec(self.mats, f, v)
+
+    def rmatvec(self, f, v):
+        return stencil_phi_rmatvec(self.mats, f, v)
+
+    def matvec_bm(self, f, v):
+        return stencil_phi_matvec_bm(self.mats, f, v)
+
+    def rmatvec_bm(self, f, v):
+        return stencil_phi_rmatvec_bm(self.mats, f, v)
+
+    def rows(self, f, idx):
+        return stencil_phi_rows(self.mats, f, idx)
+
     def to(self, device) -> "StencilFeatures":
         return StencilFeatures(
             StencilStepMatrices(self.mats.vals.to(device), self.mats.offsets)
         )
+
+
+# The uncontracted stencil products fold the modulator in at every call (a
+# solver loop should :func:`contract` once instead); on the card each product
+# is kernel K1.
+
+
+def stencil_phi_matvec_bm(mats: StencilStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φᵀ``: Σ_s w_s ⊙ roll(v, −off_s). v: (B, N) → (B, N)."""
+    return contract(StencilFeatures(mats), modulator).matvec_bm(v)
+
+
+def stencil_phi_rmatvec_bm(mats: StencilStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``V @ Φ``: Σ_s roll(w_s ⊙ v, +off_s). v: (B, N) → (B, N)."""
+    return contract(StencilFeatures(mats), modulator).rmatvec_bm(v)
+
+
+def stencil_phi_matvec(mats: StencilStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``Φ @ v``; v (N,) or column-major (N, B)."""
+    return stencil_phi_matvec_bm(mats, modulator, _as_rows(v)).T.reshape(v.shape)
+
+
+def stencil_phi_rmatvec(mats: StencilStepMatrices, modulator, v: torch.Tensor) -> torch.Tensor:
+    """``Φᵀ @ v``; v (N,) or column-major (N, B)."""
+    return stencil_phi_rmatvec_bm(mats, modulator, _as_rows(v)).T.reshape(v.shape)
+
+
+def stencil_phi_rows(mats: StencilStepMatrices, modulator, rows: torch.Tensor) -> torch.Tensor:
+    """Dense ``Φ[rows, :]`` (R, N): a small scatter of R·S entries."""
+    return contract(StencilFeatures(mats), modulator).rows(torch.as_tensor(rows))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,7 +937,8 @@ class ContractedFeatures:
 def contract(feats, f: torch.Tensor):
     """Fold the modulator into the feature operator, once per solve:
     StencilFeatures → ContractedStencil (w precomputed; products by K1);
-    EllFeatures and DenseFeatures → ContractedFeatures (a binding)."""
+    EllFeatures, LogFeatures and DenseFeatures → ContractedFeatures (a
+    binding)."""
     if isinstance(feats, StencilFeatures):
         vals = feats.mats.vals
         w = torch.einsum("l,lsn->sn", _f32(f, vals.device), vals)
@@ -792,6 +947,8 @@ def contract(feats, f: torch.Tensor):
         return ContractedStencil(w=w, w_shift=w_shift, offsets=offsets)
     if isinstance(feats, EllFeatures):
         return ContractedFeatures(feats, _f32(f, feats.mats.cols.device))
+    if isinstance(feats, LogFeatures):
+        return ContractedFeatures(feats, _f32(f, feats.log.curs.device))
     if isinstance(feats, DenseFeatures):
         return ContractedFeatures(feats, _f32(f, feats.step_matrices.device))
     raise TypeError(f"contract(): no feature layout {type(feats).__name__}")

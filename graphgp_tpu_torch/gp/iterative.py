@@ -54,6 +54,72 @@ def _expand_add(v: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros((v.shape[0], n), dtype=v.dtype, device=v.device).index_add(1, idx, v)
 
 
+def _expand(v: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of v (|idx|,) or (|idx|, B) set into a zero (n,) or (n, B)."""
+    out = torch.zeros((n,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    out[idx] = v
+    return out
+
+
+def _expand_bm(v: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Columns of batch-major v (B, |idx|) set into a zero (B, n)."""
+    out = torch.zeros((v.shape[0], n), dtype=v.dtype, device=v.device)
+    out[:, idx] = v
+    return out
+
+
+# The uncontracted Gram matvecs: the carry is (params, feats, train_idx) and
+# the modulator is formed from the parameters at every product, as the JAX
+# package's make_ktt_matvec* do. The solver paths of this module contract the
+# features once per solve instead (make_gram_matvec_bm*).
+
+
+def make_ktt_matvec(kind: str):
+    """Column-major ``(K_tt + σ²I) v`` for v (n_train,) or (n_train, B) over
+    any layout with ``matvec`` / ``rmatvec``. carry = (params, feats, train_idx)."""
+
+    def matvec(carry, v):
+        params, feats, train_idx = carry
+        f = P.modulator(kind, params, feats.max_walk_length)
+        u = feats.rmatvec(f, _expand(v, train_idx, feats.num_nodes))
+        return feats.matvec(f, u)[train_idx] + P.noise_variance(params) * v
+
+    return matvec
+
+
+def make_ktt_matvec_bm(kind: str):
+    """Batch-major ``(K_tt + σ²I) V`` for V (B, n_train); a 1-D v is one row.
+    carry = (params, feats, train_idx)."""
+
+    def matvec(carry, v):
+        if v.dim() == 1:
+            return matvec(carry, v[None, :])[0]
+        params, feats, train_idx = carry
+        f = P.modulator(kind, params, feats.max_walk_length)
+        u = feats.rmatvec_bm(f, _expand_bm(v, train_idx, feats.num_nodes))
+        return feats.matvec_bm(f, u)[:, train_idx] + P.noise_variance(params) * v
+
+    return matvec
+
+
+def make_ktt_matvec_bm_masked(kind: str):
+    """Masked batch-major Gram matvec for padded observation buffers,
+    ``Ã = M A M + (I − M)`` (see :func:`make_gram_matvec_bm_masked`).
+    carry = (params, feats, train_idx, mask)."""
+
+    def matvec(carry, v):
+        if v.dim() == 1:
+            return matvec(carry, v[None, :])[0]
+        params, feats, train_idx, mask = carry
+        vm = v * mask[None, :]
+        f = P.modulator(kind, params, feats.max_walk_length)
+        u = feats.rmatvec_bm(f, _expand_add(vm, train_idx, feats.num_nodes))
+        kv = feats.matvec_bm(f, u)[:, train_idx] * mask[None, :]
+        return kv + P.noise_variance(params) * vm + (v - vm)
+
+    return matvec
+
+
 def make_gram_matvec_bm():
     """Batch-major ``(K_tt + σ²I) V`` over a contracted Φ.
     carry = (phi, noise_var, train_idx)."""

@@ -17,10 +17,13 @@ correctly rounded and torch's is.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from .linalg import safe_cholesky
 
 
 def normalized_laplacian_csr(adj_csr) -> sp.csr_matrix:
@@ -50,6 +53,15 @@ def normalized_laplacian(adj) -> torch.Tensor:
     norm = adj * inv_sqrt[:, None] * inv_sqrt[None, :]
     return torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device) - norm
 
+
+
+def laplacian(adj) -> torch.Tensor:
+    """Unnormalized Laplacian ``D - A`` in float32, on the device of ``adj``
+    (array-likes land on the CPU)."""
+    if not isinstance(adj, torch.Tensor):
+        adj = torch.from_numpy(np.asarray(adj, dtype=np.float32))
+    adj = adj.to(torch.float32)
+    return torch.diag(adj.sum(dim=1)) - adj
 
 @dataclasses.dataclass(frozen=True)
 class PackedGraph:
@@ -208,3 +220,34 @@ def pack_laplacian(adj, pad_degree_to: int = 1, layout: str = "auto"):
     if layout == "csr":
         return csr_graph(sp.csr_matrix(lap))
     return pack_dense(lap, pad_degree_to=pad_degree_to)
+
+
+def packed_to_dense(g: PackedGraph) -> torch.Tensor:
+    """The dense matrix of an ELL-packed graph (for tests and small N): one
+    flat index-add of the live slots, on the graph's device."""
+    n, d = g.num_nodes, g.max_degree
+    live = torch.arange(d, device=g.device)[None, :] < g.degree[:, None]
+    rows = torch.arange(n, device=g.device)[:, None] * n
+    flat = (rows + g.neighbors.to(torch.int64)).reshape(-1)
+    vals = torch.where(live, g.weights, 0.0).reshape(-1)
+    out = torch.zeros(n * n, dtype=g.weights.dtype, device=g.device)
+    return out.index_add(0, flat, vals).reshape(n, n)
+
+
+def generate_noisy_samples(
+    kernel: torch.Tensor,
+    noise_std: float = 0.1,
+    generator: Optional[torch.Generator] = None,
+    eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One draw from ``N(0, K)`` plus iid observation noise, (n, 1).
+
+    ``eps`` = (ε_f, ε_y), two (n, 1) standard-normal draws, gives the draws
+    explicitly (the JAX package's are ``normal(k1)``, ``normal(k2)`` of
+    ``split(key)``); otherwise they come from ``generator`` on the CPU."""
+    n = kernel.shape[0]
+    if eps is None:
+        eps = tuple(torch.randn((n, 1), generator=generator) for _ in range(2))
+    eps_f, eps_y = (e.to(device=kernel.device, dtype=kernel.dtype) for e in eps)
+    chol = safe_cholesky(kernel, jitter=1e-6)
+    return chol @ eps_f + noise_std * eps_y

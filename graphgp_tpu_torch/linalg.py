@@ -1,8 +1,9 @@
 """Iterative linear algebra for large-N GP inference.
 
-Counterpart of ``graphgp_tpu/linalg.py``, batch-major throughout: vectors
-are (B, N) rows. Everything runs through a user-supplied ``matvec(carry, v)``
-whose ``carry`` is a tuple of tensors and small dataclasses of tensors (such
+Counterpart of ``graphgp_tpu/linalg.py``, batch-major: vectors are (B, N)
+rows (``batched_cg`` and ``lanczos`` also take the JAX package's column-major
+(N, B) with ``batch_axis=1``). Everything runs through a user-supplied
+``matvec(carry, v)`` whose ``carry`` is a tuple of tensors and small dataclasses of tensors (such
 as a contracted Φ operator). Solves and log-determinants are
 ``torch.autograd.Function``s with adjoint rules, so gradients reach the
 tensors in the carry without differentiating through the iterations:
@@ -28,6 +29,16 @@ class CGResult(NamedTuple):
     residual_norm: torch.Tensor
 
 
+def _column_major(fn):
+    """A batch-major operator from a column-major one: ``v (B, N) ↦ fn(carry, vᵀ)ᵀ``."""
+    return None if fn is None else (lambda carry, v: fn(carry, v.T).T)
+
+
+def _as_rows(v: torch.Tensor) -> torch.Tensor:
+    """(N,) → (1, N); column-major (N, B) → batch-major (B, N), contiguous."""
+    return (v[None, :] if v.dim() == 1 else v.T).contiguous()
+
+
 def batched_cg(
     matvec: Matvec,
     carry: Any,
@@ -36,30 +47,47 @@ def batched_cg(
     tol: float = 1e-2,
     max_iters: int = 100,
     x0: Optional[torch.Tensor] = None,
+    precond: Optional[Matvec] = None,
+    batch_axis: int = 0,
 ) -> CGResult:
-    """Conjugate gradients on B independent systems in lockstep.
+    """Preconditioned conjugate gradients on B independent systems in lockstep.
 
-    b: (N,) or batch-major (B, N); ``matvec`` takes (B, N). Systems whose
-    relative residual is at or below ``tol`` are frozen (step size 0) while
-    the others go on; the loop ends when all have converged or after
+    b: (N,), batch-major (B, N) with ``batch_axis=0`` (this package's
+    layout), or column-major (N, B) with ``batch_axis=1`` (the JAX package's
+    default). ``matvec(carry, v)`` and ``precond(carry, r)`` (which applies
+    M⁻¹) take v in b's layout; a single vector reaches them as one row
+    (1, N), or as one column (N, 1) with ``batch_axis=1``. Systems whose
+    relative residual ‖r‖/‖b‖ is at or below ``tol`` are frozen (step size 0)
+    while the others go on; the loop ends when all have converged or after
     ``max_iters`` iterations.
     """
+    if batch_axis == 1:
+        res = batched_cg(
+            _column_major(matvec), carry, _as_rows(b), tol=tol, max_iters=max_iters,
+            x0=None if x0 is None else _as_rows(x0), precond=_column_major(precond),
+        )
+        if b.dim() == 1:
+            return CGResult(res.x[0], res.iterations, res.residual_norm[0])
+        return CGResult(res.x.T, res.iterations, res.residual_norm)
     single = b.dim() == 1
     if single:
         b = b[None, :]
         x0 = None if x0 is None else x0[None, :]
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(carry, x)
-    p = r
-    rz = (r * r).sum(dim=-1)
+    z = r if precond is None else precond(carry, r)
+    p = z
+    rz = (r * z).sum(dim=-1)
+    # ‖r‖², the convergence test's: rz itself without a preconditioner
+    rr = rz if precond is None else (r * r).sum(dim=-1)
     b_norm = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1e-30)
 
-    def residual(rr):
-        return torch.sqrt(torch.clamp(rr, min=0.0)) / b_norm
+    def residual(sq):
+        return torch.sqrt(torch.clamp(sq, min=0.0)) / b_norm
 
     it = 0
     while it < max_iters:
-        active = residual(rz) > tol
+        active = residual(rr) > tol
         if not bool(active.any()):
             break
         ap = matvec(carry, p)
@@ -68,12 +96,14 @@ def batched_cg(
         alpha = torch.where(active, alpha, 0.0)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * ap
-        rz_new = (r * r).sum(dim=-1)
+        z = r if precond is None else precond(carry, r)
+        rz_new = (r * z).sum(dim=-1)
+        rr = rz_new if precond is None else (r * r).sum(dim=-1)
         beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        p = r + beta[:, None] * p
+        p = z + beta[:, None] * p
         rz = rz_new
         it += 1
-    res = residual(rz)
+    res = residual(rr)
     if single:
         return CGResult(x[0], it, res[0])
     return CGResult(x, it, res)
@@ -174,10 +204,19 @@ def lanczos(
     num_iters: int,
     *,
     reorthogonalize: bool = True,
+    batch_axis: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lanczos tridiagonalization of symmetric A from start rows v0 (B, N),
-    with full reorthogonalization against the stored basis (m is small).
-    Returns (alphas (m, B), betas (m−1, B))."""
+    """Lanczos tridiagonalization of symmetric A from start vectors v0, with
+    full reorthogonalization against the stored basis (m is small).
+
+    v0: (N,), batch-major rows (B, N), or column-major (N, B) with
+    ``batch_axis=1``; ``matvec`` takes b's layout, as in :func:`batched_cg`.
+    Returns (alphas (m, B), betas (m−1, B)), or (m,) and (m−1,) for one v0."""
+    if batch_axis == 1 or v0.dim() == 1:
+        mv = _column_major(matvec) if batch_axis == 1 else matvec
+        rows = _as_rows(v0) if batch_axis == 1 else v0[None, :]
+        alphas, betas = lanczos(mv, carry, rows, num_iters, reorthogonalize=reorthogonalize)
+        return (alphas[:, 0], betas[:, 0]) if v0.dim() == 1 else (alphas, betas)
     bsz = v0.shape[0]
     q = v0 / torch.clamp(torch.linalg.vector_norm(v0, dim=-1, keepdim=True), min=1e-30)
     q_prev = torch.zeros_like(q)
@@ -280,7 +319,17 @@ def cholesky_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def safe_cholesky(a: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
-    """Lower Cholesky factor of ``a + jitter·I``; raises if that is not
-    positive definite."""
-    n = a.shape[0]
-    return torch.linalg.cholesky(a + jitter * torch.eye(n, dtype=a.dtype, device=a.device))
+    """Lower Cholesky factor of ``a + jitter·I``, batched over leading axes.
+
+    Where that matrix is not positive definite the factor is NaN on and below
+    the diagonal (0 above), as ``jnp.linalg.cholesky`` returns it, and the NaN
+    flows on instead of raising: an HMC trajectory that leaves the posterior's
+    support then ends in a rejection. ``cholesky_ex`` leaves the info word on
+    the device, so no call waits for the host.
+    """
+    n = a.shape[-1]
+    chol, info = torch.linalg.cholesky_ex(
+        a + jitter * torch.eye(n, dtype=a.dtype, device=a.device), check_errors=False
+    )
+    nan = torch.full_like(chol, float("nan")).tril()
+    return torch.where((info == 0)[..., None, None], chol, nan)

@@ -37,6 +37,12 @@ def diffusion_modulator(max_walk_length: int, beta: torch.Tensor) -> torch.Tenso
     return sign * torch.exp(log_mag)
 
 
+
+def geometric_modulator(max_walk_length: int, rho) -> torch.Tensor:
+    """``f_l = rho^l``, the geometric-series family."""
+    rho = torch.as_tensor(rho, dtype=torch.float32)
+    return rho ** torch.arange(max_walk_length, dtype=torch.float32, device=rho.device)
+
 def free_modulator_init(
     max_walk_length: int,
     generator: Optional[torch.Generator] = None,

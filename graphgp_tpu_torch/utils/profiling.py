@@ -1,8 +1,8 @@
-"""Profiling and observability: phase timers, throughput counters and device
-memory readers.
+"""Profiling and observability: phase timers, throughput counters, trace
+capture and device memory readers.
 
-Counterpart of ``graphgp_tpu/utils/profiling.py``. There is no trace capture
-here: ``torch.profiler`` is used directly where a trace is wanted.
+Counterpart of ``graphgp_tpu/utils/profiling.py``; :func:`torch_trace` is
+the counterpart of its ``jax_trace``.
 """
 from __future__ import annotations
 
@@ -47,6 +47,26 @@ def memory_mb() -> Optional[float]:
     except ImportError:
         return None
     return psutil.Process().memory_info().rss / 1e6
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace around a block and write it to
+    ``log_dir`` as one Chrome trace file (``chrome://tracing``, Perfetto):
+    host ops, and the card's kernels when a card is present."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def device_memory_stats() -> Dict[str, Optional[Dict[str, float]]]:
