@@ -6,7 +6,8 @@ BO flagship, the scaling experiment with full-space prediction, the
 dense-regime protocols (ablation and traffic regression, the latter also on
 the PEMS-BAY dataset with the GCN baseline), the wind protocol, SVGP
 classification, GRF-Thompson on the shipped facebook graph, the
-orchestrator, Laplace-whitened HMC and the multi-device path, fails if any
+orchestrator, Laplace-whitened HMC, the multi-device path, training over
+features split across ranks and the isolated BO sweep, fails if any
 record of any phase carries an error, and holds each hand-written kernel of
 those paths against its plain PyTorch version on the paths' own tensors:
 
@@ -114,7 +115,19 @@ those paths against its plain PyTorch version on the paths' own tensors:
      iterations at tol 0, two all-reduces a matvec), then
      graphgp_tpu_torch.cli.multichip.main with --devices 1 (one spawned rank):
      walks/s and CG iterations/s, that card's throughput, not a scaling
-     measurement.
+     measurement;
+ 14. training and prediction with the features split over ranks, on an NCCL
+     group of world size 1 at the same ring: gp.iterative.fit (every 8th
+     node trains, 4096; diffusion; CG tol 1e-3, 50 iterations, 4 probes; 15
+     Adam steps, the full-space solver) and pathwise_predict (4 samples at
+     4096 held-out nodes) over shard.sharded_features, against the same
+     calls on the whole features with the same probes and ε (losses,
+     parameters, samples), seconds an Adam step, the collectives a Gram
+     matvec (one all-reduce, one all-gather) and an Adam step; the ported
+     shard.dryrun_multichip in the same group; then cli.bo --isolate, two
+     cells (random search, GRF-Thompson) on a 1024-node grid with no error
+     row, and one cell at a 5 s --cell-timeout, shorter than a child's
+     start, which must be the one error row, naming the timeout.
 
 Usage: python3 chip_smoke.py   (exits non-zero without a CUDA card)
 
@@ -130,7 +143,8 @@ facebook cell runs uncut (FB_ITERATIONS iterations, both of FB_SEEDS). The
 PEMS-BAY dataset run takes 1 seed of 3 and walks 1024 of the record's
 1..8192; wind 1 seed of 3 at the CLI's 300 Adam steps (the JAX record ran
 1000) and walks WIND_WALKS; classification 1 seed of 5; the orchestrator 1
-run of 3 iterations at 4096 nodes; HMC and the multi-device path run uncut.
+run of 3 iterations at 4096 nodes; HMC and the multi-device path run uncut,
+and so does the sharded fit (the JAX sharded training test's 15 steps).
 Widths are the protocols' own.
 """
 from __future__ import annotations
@@ -270,6 +284,24 @@ MULTI_TRAIN, MULTI_BATCH, MULTI_CG_ITERS = 4096, 8, 50
 # the distributed CG against the single-device CG, 50 iterations at tol 0:
 # float32 sums in another order (the transposed product adds by atomics)
 REL_TOL_MULTI_CG = 1e-4
+# Phase 14, training and prediction with the features split over ranks, at
+# the multichip CLI's ring: every 8th node trains (4096), the JAX sharded
+# training test's solver (CG tol 1e-3, 50 iterations, 4 probes) for 15 Adam
+# steps, then 4 pathwise samples at 4096 held-out nodes. Sharded (an NCCL
+# group of one) against unsharded on the card, same probes and ε: CG stops
+# at tol 1e-3 in float32 sums of another order (the walk log's transposed
+# product adds by atomics), which Adam's normalised steps carry on.
+SHARD_STRIDE, SHARD_STEPS, SHARD_SAMPLES = 8, 15, 4
+SHARD_SETTINGS = dict(cg_tol=1e-3, cg_max_iters=50, num_probes=4)
+REL_TOL_SHARD_LOSS = 1e-3
+ABS_TOL_SHARD_PARAMS = 1e-2
+REL_TOL_SHARD_SAMPLES = 1e-3
+# the isolated BO sweep: two cells on a small grid, then one cell whose
+# timeout is shorter than a child's start on the card
+ISOLATE_ARGV = ["--graph-type", "grid", "--n-nodes", "1024", "--iterations", "3",
+                "--initial-points", "5", "--walks-per-node", "100", "--max-walk-length", "3",
+                "--train-epochs", "3", "--bo-seeds", "100", "--isolate"]
+ISOLATE_SHORT_TIMEOUT = 5
 
 
 def log(msg: str) -> None:
@@ -2223,6 +2255,150 @@ def multi_device_path(device) -> None:
         f"{r['cg_iters_per_s']:.1f} CG iterations/s ({r['cg_seconds']:.4f} s for "
         f"{MULTI_CG_ITERS}); one card's throughput, not a scaling measurement; {card_line()}")
 
+# ---------------------------------------------------------------------------
+# Phase 14: training and prediction with the features split over ranks, the
+# ported dryrun, and the BO sweep's per-cell isolation
+# ---------------------------------------------------------------------------
+
+
+def sharded_training_path(device) -> None:
+    """gp.iterative.fit (15 Adam steps) and pathwise_predict over
+    shard.ShardedFeatures on an NCCL group of world size 1, at the multichip
+    CLI's ring (N 32768, walks 100, L 3, LogFeatures), against the same calls
+    on the whole features, with the same probes and ε: seconds an Adam step,
+    the collectives a Gram matvec and an Adam step. Then the ported
+    multi-chip dryrun in the same group. One card: not a scaling
+    measurement."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from graphgp_tpu_torch import shard
+    from graphgp_tpu_torch.cuda_kernels import gram as k2
+    from graphgp_tpu_torch.cuda_kernels import stencil as k1
+    from graphgp_tpu_torch.cuda_kernels import stencil_build as k3
+    from graphgp_tpu_torch.cuda_kernels import walker as k4
+    from graphgp_tpu_torch.data.synthetic import generate_ring_data
+    from graphgp_tpu_torch.features import LogFeatures, contract
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.gp import params as P
+    from graphgp_tpu_torch.graphs import pack_laplacian
+    from graphgp_tpu_torch.walker import WalkConfig, sample_walk_log
+
+    def kernel_launches():
+        return (k1.launches + k1.dw_launches + k2.rmv_mask_launches + k2.mv_epilogue_launches
+                + k3.launches + k4.launches)
+
+    launches_before = kernel_launches()
+    data = generate_ring_data(MULTI_N, seed=0)
+    graph = pack_laplacian(data["adjacency"]).to(device)
+    feats = LogFeatures(sample_walk_log(graph, 0, WalkConfig(MULTI_WPN, 0.1, MULTI_L)), MULTI_N)
+    train_idx = torch.arange(0, MULTI_N, SHARD_STRIDE, device=device)
+    test_idx = torch.arange(SHARD_STRIDE // 2, MULTI_N, SHARD_STRIDE, device=device)
+    y = torch.from_numpy(data["y_observed"].astype(np.float32)).to(device)[train_idx]
+    gen = torch.Generator().manual_seed(7)
+    probes = (torch.randint(0, 2, (SHARD_STEPS, SHARD_SETTINGS["num_probes"], MULTI_N),
+                            generator=gen) * 2.0 - 1.0).to(device)
+    eps1 = torch.randn((SHARD_SAMPLES, MULTI_N), generator=gen).to(device)
+    eps2 = torch.randn((SHARD_SAMPLES, train_idx.numel()), generator=gen).to(device)
+    settings = iterative.CGSettings(**SHARD_SETTINGS)
+    init = P.init_params("diffusion", MULTI_L, device=device)
+
+    def fit(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = iterative.fit(f, train_idx, y, kind="diffusion", init=init, num_steps=SHARD_STEPS,
+                            settings=settings, probes=probes)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) / SHARD_STEPS
+
+    def predict(f, params):
+        return iterative.pathwise_predict(f, params, train_idx, y, test_idx, kind="diffusion",
+                                          num_samples=SHARD_SAMPLES, settings=settings,
+                                          full_space=True, eps1=eps1, eps2=eps2)
+
+    iterative.fit(feats, train_idx, y, kind="diffusion", init=init, num_steps=1,
+                  settings=settings, probes=probes)  # first calls' set-up, outside the times
+    whole, whole_step_s = fit(feats)
+    whole_samples = predict(feats, whole.params)
+    with tempfile.TemporaryDirectory() as store:
+        shard.init_process_group(0, 1, os.path.join(store, "store"), device)
+        try:
+            mesh = shard.make_mesh(1)
+            split = shard.sharded_features(feats, mesh)
+            before = (shard.all_reduces, shard.all_gathers)
+            phi = contract(split, P.modulator("diffusion", init, MULTI_L))
+            phi.matvec_bm(phi.rmatvec_bm(torch.ones(1, MULTI_N, device=device)))
+            per_matvec = (shard.all_reduces - before[0], shard.all_gathers - before[1])
+            before = (shard.all_reduces, shard.all_gathers)
+            sharded, sharded_step_s = fit(split)
+            per_step = ((shard.all_reduces - before[0]) / SHARD_STEPS,
+                        (shard.all_gathers - before[1]) / SHARD_STEPS)
+            samples = predict(split, whole.params)
+            t0 = time.perf_counter()
+            dry = shard.dryrun_multichip(mesh)
+            dry_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    launches = kernel_launches() - launches_before
+    _, rel_loss = rel_err(sharded.losses, whole.losses)
+    param_err = max(float((sharded.params[k] - whole.params[k]).abs().max()) for k in init)
+    _, rel_samples = rel_err(samples, whole_samples)
+    log(f"sharded training (NCCL, world 1): ring N {MULTI_N}, wpn {MULTI_WPN}, L {MULTI_L}, "
+        f"{train_idx.numel()} train, {SHARD_STEPS} Adam steps, "
+        f"{iterative.CGSettings(**SHARD_SETTINGS)}: {sharded_step_s:.4f} s an Adam step "
+        f"({whole_step_s:.4f} s unsharded); losses {sharded.losses[0].item():.4f} -> "
+        f"{sharded.losses[-1].item():.4f}, rel {rel_loss:.2e} against unsharded, parameters "
+        f"{param_err:.2e} abs; {SHARD_SAMPLES} pathwise samples at {test_idx.numel()} nodes rel "
+        f"{rel_samples:.2e}; a Gram matvec {per_matvec[0]} all-reduce(s) and {per_matvec[1]} "
+        f"all-gather(s), an Adam step {per_step[0]:.1f} and {per_step[1]:.1f}; kernel launches "
+        f"{launches} (the walk log's products are PyTorch gathers and scatter-adds, as the JAX "
+        f"package's are XLA's); one card, not a scaling measurement; {card_line()}")
+    log(f"dryrun_multichip (NCCL, world 1): loss {dry['loss']:.4f}, solve norm "
+        f"{dry['solve_norm']:.4f}, HMC accept {dry['hmc_accept']:.2f}, {dry_s:.2f} s")
+    check(bool(torch.isfinite(sharded.losses).all()), "sharded training: loss not finite")
+    check(sharded.losses[-1] < sharded.losses[0], "sharded training: the loss did not fall")
+    check(rel_loss <= REL_TOL_SHARD_LOSS, f"sharded training: losses rel {rel_loss}")
+    check(param_err <= ABS_TOL_SHARD_PARAMS, f"sharded training: parameters {param_err}")
+    check(samples.shape == (SHARD_SAMPLES, test_idx.numel()), "sharded training: sample shape")
+    check(rel_samples <= REL_TOL_SHARD_SAMPLES, f"sharded training: samples rel {rel_samples}")
+    check(per_matvec == (1, 1), f"sharded training: a Gram matvec made {per_matvec} collectives")
+    check(all(math.isfinite(v) for v in dry.values()), f"dryrun_multichip: {dry}")
+
+
+def isolated_bo_sweep(device) -> None:
+    """cli.bo --isolate on a small grid: random search and GRF-Thompson, one
+    child process a cell, no error row; then one cell whose --cell-timeout is
+    shorter than a child's start, run twice and killed twice: exactly one
+    error row, naming the timeout."""
+    import os
+    import tempfile
+
+    from graphgp_tpu_torch.cli import bo
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cache = ["--cache-dir", os.path.join(d, "cache"), "--device", device]
+        two = bo.main([*ISOLATE_ARGV, *cache, "--algorithms", "random_search", "grf_thompson",
+                       "--results-dir", os.path.join(d, "two")])
+        two_s = time.perf_counter() - t0
+        short = bo.main([*ISOLATE_ARGV, *cache, "--algorithms", "grf_thompson",
+                         "--cell-timeout", str(ISOLATE_SHORT_TIMEOUT),
+                         "--results-dir", os.path.join(d, "short")])
+    check_no_error_rows("isolated BO sweep", two)
+    check(len(two) == 2 * 3, f"isolated BO sweep: {len(two)} rows")
+    check(len(short) == 1 and "cell rc=timeout" in short[0].get("error", ""),
+          f"isolated BO sweep: the timed-out cell gave {short}")
+    final = {r["algorithm"]: r["regret"] for r in two if r["iteration"] == 3}
+    log(f"isolated BO sweep: 2 cells {two_s:.2f} s, final regret "
+        f"{ {k: round(v, 4) for k, v in final.items()} }; the {ISOLATE_SHORT_TIMEOUT} s cell: "
+        f"one error row ({short[0]['error'].splitlines()[0]}), "
+        f"{time.perf_counter() - t0 - two_s:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2331,6 +2507,10 @@ def main() -> int:
     t0 = time.perf_counter()
     multi_device_path(device)
     log(f"multi-device path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sharded_training_path(device)
+    isolated_bo_sweep(device)
+    log(f"sharded training and the isolated sweep: {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k3_row, k2a_row, k2b_row, k4_row, dw_row]
 
     log(card)

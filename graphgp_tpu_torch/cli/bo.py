@@ -11,8 +11,16 @@ exist. ``--config`` folds a YAML file into the flags' defaults.
 A graph that fails to load or preprocess adds a row ``{"graph_type",
 "error"}``, a failed (algorithm, seed) cell a row ``{"graph_type",
 "algorithm", "seed", "error"}``, and the sweep goes on; the summary leaves
-error rows out and the count of them is printed. A cell is run once: there
-is no retry with another implementation.
+error rows out and the count of them is printed. A cell is never retried on
+another implementation.
+
+``--isolate`` runs each (dataset, algorithm, seed) cell in a child process
+of its own, ``--cell-timeout`` seconds at most (the child is killed then),
+and runs a failed cell once more, the same command: after an illegal
+address or a device-side assert a process's CUDA context is lost for good,
+and a kernel or a collective that never returns has no other guard. A child
+that fails twice, or writes only error rows, leaves one error row naming its
+exit code or the timeout.
 
 Usage:
     python -m graphgp_tpu_torch.cli.bo --graph-type grid --n-nodes 1000000 \
@@ -80,6 +88,91 @@ def make_algorithm(name, data, feats, args, rng):
     raise ValueError(f"unknown algorithm {name!r}")
 
 
+# Flags forwarded verbatim to an isolated cell's child process.
+_CELL_FLAGS = [
+    ("n_nodes", "--n-nodes"), ("iterations", "--iterations"),
+    ("initial_points", "--initial-points"), ("batch_size", "--batch-size"),
+    ("walks_per_node", "--walks-per-node"), ("p_halt", "--p-halt"),
+    ("max_walk_length", "--max-walk-length"), ("kernel_kind", "--kernel-kind"),
+    ("learning_rate", "--learning-rate"), ("train_epochs", "--train-epochs"),
+    ("gp_retrain_interval", "--gp-retrain-interval"), ("cg_tol", "--cg-tol"),
+    ("cache_dir", "--cache-dir"), ("seed", "--seed"), ("device", "--device"),
+]
+
+
+def _parse_cell(value: str):
+    """A CSV field back as the number or string it was written from."""
+    try:
+        return float(value) if "." in value or "e" in value.lower() else int(value)
+    except ValueError:
+        return value
+
+
+def _run_cell(cmd: List[str], cell_dir: str, timeout: float):
+    """One child run of a cell: (its rows, "") or (None, why it failed). The
+    child finds this package where this process found it."""
+    import csv
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+    except subprocess.TimeoutExpired as e:  # run() has killed the child
+        out = e.stdout.decode(errors="replace") if isinstance(e.stdout, bytes) else e.stdout
+        return None, f"cell rc=timeout\ncell timeout after {timeout}s\n{out or ''}"
+    csv_path = os.path.join(cell_dir, "bo.csv")
+    if proc.returncode != 0 or not os.path.exists(csv_path):
+        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-15:])
+        return None, f"cell rc={proc.returncode}\n{tail}"
+    with open(csv_path, newline="") as fh:
+        rows = [{k: _parse_cell(v) for k, v in r.items() if v not in (None, "")}
+                for r in csv.DictReader(fh)]
+    if all("error" in r for r in rows):  # a child that recorded only error rows failed
+        return None, "\n".join(str(r.get("error", "")) for r in rows)
+    return rows, ""
+
+
+def _run_isolated(args, targets: List[str], seeds: List[int]) -> List[Dict]:
+    """Every (dataset, algorithm, seed) cell in a child process of its own,
+    run a second time, the same command, if the first run fails."""
+    import os
+    import sys
+
+    records: List[Dict] = []
+    for graph_type in targets:
+        for algo_name in args.algorithms:
+            for seed in seeds:
+                cell = f"{graph_type}_{algo_name}_{seed}"
+                cell_dir = os.path.join(args.results_dir, ".cells", cell)
+                cmd = [sys.executable, "-u", "-m", "graphgp_tpu_torch.cli.bo",
+                       "--graph-type", str(graph_type), "--algorithms", algo_name,
+                       "--bo-seeds", str(seed), "--results-dir", cell_dir]
+                for attr, flag in _CELL_FLAGS:
+                    cmd += [flag, str(getattr(args, attr))]
+                if args.gaussianize:
+                    cmd.append("--gaussianize")
+                for attempt in range(2):
+                    print(f"== cell {cell}{' [retry]' if attempt else ''} ==", flush=True)
+                    rows, err = _run_cell(cmd, cell_dir, args.cell_timeout)
+                    if rows is not None:
+                        break
+                    print(f"!! cell {cell} failed (attempt {attempt + 1}):")
+                    for ln in err.splitlines()[-8:]:
+                        print(f"   {ln}")
+                if rows is None:
+                    records.append({"graph_type": graph_type, "algorithm": algo_name,
+                                    "seed": seed, "error": err[-8000:]})
+                    continue
+                records.extend(rows)
+                final = [r for r in rows if r.get("iteration") == args.iterations]
+                if final:
+                    print(f"   final best={final[-1].get('best_value')} "
+                          f"regret={final[-1].get('regret')}")
+    return records
+
+
 def load_graph(graph_type: str, n_nodes: int, seed: int) -> Dict:
     """A synthetic graph by generator name, else a dataset by registry name."""
     from ..data import synthetic
@@ -110,6 +203,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--runs", type=int, default=3)
     p.add_argument("--bo-seeds", type=int, nargs="+", default=None,
                    help="explicit BO seeds (overrides --runs; the reference uses 100+10i)")
+    p.add_argument("--isolate", action="store_true",
+                   help="run each (dataset, algorithm, seed) cell in a child process, "
+                        "retried once: a lost CUDA context or a hung kernel ends one cell, "
+                        "not the sweep")
+    p.add_argument("--cell-timeout", type=int, default=5400,
+                   help="seconds a cell's child may run under --isolate")
     p.add_argument("--initial-points", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--walks-per-node", type=int, default=1000)
@@ -129,20 +228,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> List[Dict]:
-    args, _cfg = parse_with_config(build_parser(), argv)
-
+def _run_in_process(args, targets: List[str], seeds: List[int]) -> List[Dict]:
+    """Every cell in this process; a failed graph or cell is an error row."""
     from ..bo import run_optimization
-    from ..devices import resolve_device
     from ..preprocessor import preprocess_graph
-    from ..utils.io import print_summary, save_results
     from ..walker import WalkConfig
 
-    resolve_device(args.device)
-    targets = args.datasets or [args.graph_type]
-    seeds = args.bo_seeds or [100 + 10 * i for i in range(args.runs)]
     needs_gp = "grf_thompson" in args.algorithms
-    all_records: List[Dict] = []
+    records: List[Dict] = []
     for graph_type in targets:
         try:
             data = load_graph(graph_type, args.n_nodes, args.seed)
@@ -161,7 +254,7 @@ def main(argv=None) -> List[Dict]:
                 )
         except Exception as e:  # noqa: BLE001 -- the sweep goes on, the row records it
             _print_error(f"{graph_type}: data/preprocess", e)
-            all_records.append({"graph_type": graph_type, "error": _error_text(e)})
+            records.append({"graph_type": graph_type, "error": _error_text(e)})
             continue
         for algo_name in args.algorithms:
             for seed in seeds:
@@ -176,15 +269,29 @@ def main(argv=None) -> List[Dict]:
                     )
                 except Exception as e:  # noqa: BLE001 -- as above
                     _print_error(f"{graph_type}/{algo_name}/seed={seed}", e)
-                    all_records.append({"graph_type": graph_type, "algorithm": algo_name,
-                                        "seed": seed, "error": _error_text(e)})
+                    records.append({"graph_type": graph_type, "algorithm": algo_name,
+                                    "seed": seed, "error": _error_text(e)})
                     continue
                 for rec in result.records:
                     rec.update({"algorithm": algo_name, "seed": seed,
                                 "graph_type": graph_type, "n_nodes": objective.shape[0]})
-                all_records.extend(result.records)
+                records.extend(result.records)
                 print(f"   final best={result.records[-1]['best_value']:.4f} "
                       f"regret={result.records[-1]['regret']:.4f}")
+    return records
+
+
+def main(argv=None) -> List[Dict]:
+    args, _cfg = parse_with_config(build_parser(), argv)
+
+    from ..devices import resolve_device
+    from ..utils.io import print_summary, save_results
+
+    resolve_device(args.device)
+    targets = args.datasets or [args.graph_type]
+    seeds = args.bo_seeds or [100 + 10 * i for i in range(args.runs)]
+    run = _run_isolated if args.isolate else _run_in_process
+    all_records = run(args, targets, seeds)
 
     path = save_results(all_records, args.results_dir, "bo", config=vars(args))
     final = [

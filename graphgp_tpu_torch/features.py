@@ -937,8 +937,10 @@ class ContractedFeatures:
 def contract(feats, f: torch.Tensor):
     """Fold the modulator into the feature operator, once per solve:
     StencilFeatures → ContractedStencil (w precomputed; products by K1);
-    EllFeatures, LogFeatures and DenseFeatures → ContractedFeatures (a
-    binding)."""
+    EllFeatures, LogFeatures and DenseFeatures, whole or split over ranks
+    (``shard.ShardedFeatures``) → ContractedFeatures (a binding)."""
+    from .shard import ShardedFeatures
+
     if isinstance(feats, StencilFeatures):
         vals = feats.mats.vals
         w = torch.einsum("l,lsn->sn", _f32(f, vals.device), vals)
@@ -951,6 +953,8 @@ def contract(feats, f: torch.Tensor):
         return ContractedFeatures(feats, _f32(f, feats.log.curs.device))
     if isinstance(feats, DenseFeatures):
         return ContractedFeatures(feats, _f32(f, feats.step_matrices.device))
+    if isinstance(feats, ShardedFeatures):
+        return ContractedFeatures(feats, _f32(f, feats.mesh.device))
     raise TypeError(f"contract(): no feature layout {type(feats).__name__}")
 
 

@@ -283,9 +283,10 @@ def pathwise_predict(
     ``full_space=True``: the residual solve runs in the full node space,
     on a stencil layout through the fused masked-Gram CG (kernel K2): no
     gather or scatter per iteration, the fast path when the train set is a
-    sizable fraction of the graph; on the ELL and dense layouts through
-    ``batched_cg``. Requires distinct live train node ids (masked slots may
-    repeat node 0 with value 0).
+    sizable fraction of the graph; on the ELL, dense and log layouts, whole
+    or split over ranks (``shard.ShardedFeatures``), through ``batched_cg``.
+    Requires distinct live train node ids (masked slots may repeat node 0
+    with value 0).
     """
     dev = y.device
     f = P.modulator(kind, params, feats.max_walk_length)

@@ -10,6 +10,10 @@ the small :class:`Mesh` record of that group, this rank and its device.
   the whole (replicated) graph. The walk hash keys on global node ids, so the
   gathered log equals the single-device log bit for bit.
 * **Features** split over the node axis: a rank holds a row block of Φ.
+  :func:`sharded_features` wraps that block in :class:`ShardedFeatures`,
+  whose products are the global ones, so ``gp.iterative``'s ``mll_cg``,
+  ``fit`` and ``pathwise_predict`` run over it unchanged on every rank, as
+  the JAX package's run over its sharded placement.
 * **The Gram solve** is CG with replicated scalars and exactly two
   all-reduces a matvec, of the (Nt, B) partial Φᵀv and of the (n_train, B)
   partial K v; everything else is rank-local.
@@ -34,11 +38,14 @@ import torch
 import torch.distributed as dist
 
 from .devices import resolve_device
-from .features import DenseFeatures, EllFeatures, EllStepMatrices, LogFeatures
+from .features import (DenseFeatures, EllFeatures, EllStepMatrices, LogFeatures, _f32,
+                       with_transpose)
 from .walker import WalkConfig, WalkLog, sample_walk_log
 
-# All-reduces issued by distributed_gram_solve (two a matvec); tests read it.
+# Collectives made by this module (distributed_gram_solve: two all-reduces
+# a matvec; ShardedFeatures: see its docstring); tests and chip_smoke read them.
 all_reduces = 0
+all_gathers = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +102,8 @@ def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def all_gather_rows(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     """Every rank's equally shaped ``t`` concatenated along ``dim``, in rank
     order, on every rank."""
+    global all_gathers
+    all_gathers += 1
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group)
     return torch.cat(parts, dim=dim)
@@ -139,8 +148,11 @@ def replicate(tree, mesh: Mesh):
 
 def shard_features(feats, mesh: Mesh):
     """This rank's row block of a Dense / ELL / Log features object (node
-    axis 1 of its step matrices or log), on the mesh's device. The node count
-    must be a multiple of the world size (:func:`pad_features`)."""
+    axis 1 of its step matrices or log), on the mesh's device: a plain
+    features object of ``N / size`` nodes. The node count must be a multiple
+    of the world size (:func:`pad_features`). An ELL with its transpose gets
+    the block's own, built on the mesh's device. For the global operator
+    that ``gp.iterative`` trains on, see :func:`sharded_features`."""
     n = feats.num_nodes
     if n % mesh.size:
         raise ValueError(f"{n} nodes do not split over {mesh.size} ranks; pad_features first")
@@ -151,7 +163,8 @@ def shard_features(feats, mesh: Mesh):
         return DenseFeatures(block(feats.step_matrices))
     if isinstance(feats, EllFeatures):
         m = feats.mats
-        return EllFeatures(EllStepMatrices(block(m.cols), block(m.vals), m.num_target_nodes))
+        local = EllFeatures(EllStepMatrices(block(m.cols), block(m.vals), m.num_target_nodes))
+        return local if feats.csc is None else with_transpose(local)
     if isinstance(feats, LogFeatures):
         return LogFeatures(WalkLog(block(feats.log.curs), block(feats.log.loads)),
                            feats.num_target_nodes)
@@ -171,12 +184,159 @@ def pad_features(feats, n_pad: int):
     if isinstance(feats, DenseFeatures):
         return DenseFeatures(pad(feats.step_matrices))
     if isinstance(feats, EllFeatures):
+        # the transpose's entries name their source rows: padding leaves it valid
         m = feats.mats
-        return EllFeatures(EllStepMatrices(pad(m.cols), pad(m.vals), m.num_target_nodes))
+        return EllFeatures(EllStepMatrices(pad(m.cols), pad(m.vals), m.num_target_nodes),
+                           feats.csc)
     if isinstance(feats, LogFeatures):
         return LogFeatures(WalkLog(pad(feats.log.curs), pad(feats.log.loads)),
                            feats.num_target_nodes)
     raise TypeError(f"unsupported features type {type(feats)!r}")
+
+
+# ---------------------------------------------------------------------------
+# Features split over the ranks behind the global object's surface
+# ---------------------------------------------------------------------------
+#
+# The collectives below are autograd Functions in conjugate pairs. Every
+# rank's loss is the same replicated value, so:
+#   * a sum over the ranks' partials (all-reduce) passes the cotangent on
+#     unchanged to each partial;
+#   * a replicated tensor that enters rank-local work (the modulator, a
+#     replicated vector) gets a partial cotangent on each rank, which the
+#     conjugate pair sums: identity forward, all-reduce backward;
+#   * rows gathered from the ranks (all-gather) hand each rank its own rows
+#     of the cotangent, and rows taken from a replicated tensor gather the
+#     ranks' cotangents back.
+# A replicated value that meets no block (the noise) is neither summed nor
+# split: its gradient is computed alike on every rank.
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, mesh):
+        return _all_reduce(part.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.mesh), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """(B, block) on each rank → (B, size·block) on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh, ctx.block = mesh, t.shape[1]
+        return all_gather_rows(t, mesh, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.rank * ctx.block
+        return g[:, lo:lo + ctx.block], None
+
+
+class _OwnColumns(torch.autograd.Function):
+    """Replicated (B, size·block) → this rank's (B, block) columns."""
+
+    @staticmethod
+    def forward(ctx, v, mesh, block):
+        ctx.mesh = mesh
+        lo = mesh.rank * block
+        return v[:, lo:lo + block].clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g.contiguous(), ctx.mesh, dim=1), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFeatures:
+    """A Dense / ELL / Log features object with its node axis split over the
+    ranks, behind the global object's surface: this rank's row block
+    ``local`` (``N`` padded to a multiple of the world size, zero rows), the
+    mesh, and the global node count.
+
+    Products are the global ones, replicated on every rank:
+
+    * ``rmatvec_bm(f, V)``: this rank's columns of V times the block,
+      ``V_blk Φ_blk``, all-reduced to the (B, Nt) ``V Φ``;
+    * ``matvec_bm(f, U)``: the block's rows ``U Φ_blkᵀ``, all-gathered to the
+      (B, N) ``U Φᵀ``;
+    * ``rows(f, idx)``: the rows of ``idx`` in the block, all-reduced.
+
+    One all-reduce and one all-gather a Gram matvec ``Φ (Φᵀ v)`` forward; its
+    backward for the modulator adds one all-reduce of the (B, Nt) cotangent
+    and one of the modulator's partial gradient a product. Every branch of
+    the solvers reads replicated values only (CG's residuals, Lanczos'
+    coefficients, ``fit``'s solver space), so every rank makes the same
+    collectives in the same order, in the adjoint solves too; draws must be
+    the same on every rank (one seeded generator, or explicit probes / ε).
+
+    ``gp.iterative``'s compact and full-node-space solvers both run over it.
+    Its prediction solve is ``batched_cg`` on the full-space operator: the
+    fused masked-Gram CG (kernel K2) serves ``ContractedStencil`` only, and a
+    stencil layout is not split over ranks (nor in the JAX package).
+    """
+
+    local: Any
+    mesh: Mesh
+    num_nodes: int
+
+    @property
+    def num_target_nodes(self) -> int:
+        return self.local.num_target_nodes
+
+    @property
+    def max_walk_length(self) -> int:
+        return self.local.max_walk_length
+
+    @property
+    def block(self) -> int:
+        return self.local.num_nodes
+
+    def _f(self, f) -> torch.Tensor:
+        return _Replicated.apply(_f32(f, self.mesh.device), self.mesh)
+
+    def rmatvec_bm(self, f, v):
+        """``V @ Φ``: (B, N) → (B, Nt)."""
+        v = torch.nn.functional.pad(v, (0, self.block * self.mesh.size - self.num_nodes))
+        part = self.local.rmatvec_bm(self._f(f), _OwnColumns.apply(v, self.mesh, self.block))
+        return _SumOverRanks.apply(part, self.mesh)
+
+    def matvec_bm(self, f, u):
+        """``U @ Φᵀ``: (B, Nt) → (B, N)."""
+        rows = self.local.matvec_bm(self._f(f), _Replicated.apply(u, self.mesh))
+        return _GatherColumns.apply(rows, self.mesh)[:, :self.num_nodes]
+
+    def rows(self, f, idx):
+        """Dense ``Φ[idx, :]`` (R, Nt)."""
+        idx = torch.as_tensor(idx, device=self.mesh.device).to(torch.int64)
+        lo = self.mesh.rank * self.block
+        mine = (idx >= lo) & (idx < lo + self.block)
+        part = self.local.rows(self._f(f), torch.where(mine, idx - lo, 0)) * mine[:, None]
+        return _SumOverRanks.apply(part, self.mesh)
+
+
+def sharded_features(feats, mesh: Mesh) -> ShardedFeatures:
+    """The global Dense / ELL / Log features object ``feats`` split over the
+    mesh's ranks (padded to a multiple of the world size first): this rank
+    keeps its row block on the mesh's device. Every rank calls it with the
+    same ``feats``."""
+    n = feats.num_nodes
+    local = shard_features(pad_features(feats, _pad_to_multiple(n, mesh.size)), mesh)
+    return ShardedFeatures(local, mesh, n)
 
 
 def distributed_gram_solve(
@@ -238,6 +398,106 @@ def sharded_hmc_chains(mesh: Mesh, num_chains: int) -> slice:
     of the world size, one contiguous block a rank (``gp.hmc.sample``)."""
     per = -(-num_chains // mesh.size)
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+# ---------------------------------------------------------------------------
+# The multi-chip dryrun
+# ---------------------------------------------------------------------------
+
+
+def _ring_adjacency(n: int):
+    import numpy as np
+
+    adj = np.zeros((n, n), dtype=np.float32)
+    idx = np.arange(n)
+    adj[idx, (idx + 1) % n] = 1.0
+    adj[(idx + 1) % n, idx] = 1.0
+    return adj
+
+
+def _standard_normal_log_prob(p):
+    return -0.5 * (p["beta"] * p["beta"]).sum()
+
+
+def dryrun_multichip(mesh: Mesh, probes: Optional[torch.Tensor] = None) -> dict:
+    """One full sharded training step on tiny shapes, on every rank of the
+    mesh (run it with :func:`run_ranks`): the JAX package's
+    ``__graft_entry__.dryrun_multichip`` over ``torch.distributed``. On a
+    ring of 16 nodes a rank:
+
+    1. the sharded walk (wpn 8, p_halt 0.2, L 3), split as
+       :class:`ShardedFeatures` over the log;
+    2. the CG marginal likelihood's gradient over it (every second node
+       trains, diffusion kind, 4 probes, CG tol 1e-3 and 30 iterations, 8
+       Lanczos steps) and one Adam step (lr 0.05);
+    3. pathwise posterior samples (4) at the odd nodes under the same split;
+    4. ``distributed_gram_solve`` of ``cos(0.2 i)`` (tol 1e-3, 30 iterations);
+    5. HMC chains over the ranks (one a rank; 10 warmup, 20 samples, 4
+       leapfrog steps) on a standard normal.
+
+    ``probes`` (4, n_train) replace the probes drawn from a generator seeded
+    2, so a test can hand in the JAX run's. Returns the loss before the
+    step, the solve's norm and the mean acceptance, which rank 0 prints as
+    the JAX function does."""
+    from .gp import hmc, iterative
+    from .gp import params as P
+    from .graphs import pack_laplacian
+
+    dev = mesh.device
+    n = 16 * mesh.size
+    graph = pack_laplacian(_ring_adjacency(n))
+    cfg = WalkConfig(walks_per_node=8, p_halt=0.2, max_walk_length=3)
+
+    # 1. the sharded walk: start-node blocks over the ranks, bit-identical
+    log = sharded_walk_log(graph, 0, cfg, mesh)
+    feats = sharded_features(LogFeatures(log, num_target_nodes=n), mesh)
+
+    # 2. the sharded training step: CG marginal likelihood, its gradient, Adam
+    train_idx = torch.arange(0, n, 2, device=dev)
+    y = torch.sin(torch.arange(train_idx.shape[0], dtype=torch.float32, device=dev) * 0.3)
+    params = {k: v.requires_grad_(True) for k, v in
+              P.init_params("diffusion", cfg.max_walk_length, device=dev).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=0.05)
+    settings = iterative.CGSettings(cg_tol=1e-3, cg_max_iters=30, num_probes=4,
+                                    num_lanczos_iters=8)
+    loss = -iterative.mll_cg(
+        feats, params, train_idx, y, kind="diffusion", settings=settings,
+        probes=None if probes is None else probes.to(dev),
+        generator=torch.Generator(device=dev).manual_seed(2))
+    loss.backward()
+    opt.step()
+    params = {k: v.detach() for k, v in params.items()}
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError(f"dryrun_multichip: loss {float(loss)}")
+
+    # 3. pathwise posterior sampling under the same split
+    samples = iterative.pathwise_predict(
+        feats, params, train_idx, y, torch.arange(1, n, 2, device=dev), kind="diffusion",
+        num_samples=4, settings=settings, generator=torch.Generator(device=dev).manual_seed(3))
+    if not bool(torch.isfinite(samples).all()):
+        raise RuntimeError("dryrun_multichip: pathwise samples not finite")
+
+    # 4. the explicit-collectives Gram solve (two all-reduces a CG iteration)
+    b = torch.cos(torch.arange(train_idx.shape[0], dtype=torch.float32) * 0.2)
+    x = distributed_gram_solve(LogFeatures(log, num_target_nodes=n), params, train_idx, b,
+                               mesh, kind="diffusion", tol=1e-3, max_iters=30)
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError("dryrun_multichip: Gram solve not finite")
+
+    # 5. HMC chains over the ranks
+    res = hmc.sample(_standard_normal_log_prob, {"beta": torch.zeros(2, device=dev)},
+                     torch.Generator().manual_seed(4),
+                     config=hmc.HMCConfig(num_warmup=10, num_samples=20, num_leapfrog=4),
+                     num_chains=mesh.size, mesh=dataclasses.replace(mesh, axis_name="chains"))
+    if not bool(torch.isfinite(res.log_probs).all()):
+        raise RuntimeError("dryrun_multichip: HMC log probabilities not finite")
+    out = {"loss": float(loss.detach()), "solve_norm": float(torch.linalg.vector_norm(x)),
+           "hmc_accept": float(res.accept_rate.mean())}
+    if mesh.rank == 0:
+        print(f"dryrun_multichip({mesh.size}): loss={out['loss']:.4f} "
+              f"solve_norm={out['solve_norm']:.4f} hmc_accept={out['hmc_accept']:.2f} ok",
+              flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,9 @@ CLIS = {
     "run_all": run_all, "wind": wind, "classification": classification,
 }
 # dests one package has and the other has not: the port's device flag; the
-# JAX package's platform switch and its process isolation of BO cells
+# JAX package's platform switch
 PORT_ONLY = {"device"}
-JAX_ONLY = {"force_cpu", "isolate", "cell_timeout"}
+JAX_ONLY = {"force_cpu"}
 
 
 def _yaml(tmp_path, body: str) -> str:
