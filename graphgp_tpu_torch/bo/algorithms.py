@@ -8,7 +8,6 @@ conditioning on the card.
 """
 from __future__ import annotations
 
-import time
 from abc import ABC, abstractmethod
 from typing import Dict, List, Optional
 
@@ -16,6 +15,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
+from ..utils import profiling
 
 
 class Algorithm(ABC):
@@ -176,7 +176,8 @@ class GRFThompson(Algorithm):
     All draws (fit init, probes, Thompson ε) come from one ``torch.Generator``
     seeded per BO seed from the host rng, so Thompson draws differ across
     protocol seeds. ``phase_seconds`` records each fit and draw, each ended by
-    a device synchronize.
+    a device synchronize: the readings of the recorder's ``bo.fit`` and
+    ``bo.draw`` spans (``utils.profiling``).
     """
 
     def __init__(
@@ -237,52 +238,56 @@ class GRFThompson(Algorithm):
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.host_sync():
+                torch.cuda.synchronize(self.device)
 
     def select_next_points(self, observed_idx, observed_y, batch_size=1):
         from ..gp import iterative
 
-        observed_idx = np.asarray(observed_idx).astype(np.int64)
-        observed_y = np.asarray(observed_y, dtype=np.float32)
-        pad_idx, pad_y, mask = self._padded_observations(observed_idx, observed_y)
-        dev = self.device
-        train_idx = torch.from_numpy(pad_idx).to(dev)
-        y = torch.from_numpy(pad_y).to(dev)
-        mask_t = torch.from_numpy(mask).to(dev)
+        with profiling.span("bo.select"):
+            with profiling.span("bo.upload"):
+                observed_idx = np.asarray(observed_idx).astype(np.int64)
+                observed_y = np.asarray(observed_y, dtype=np.float32)
+                pad_idx, pad_y, mask = self._padded_observations(observed_idx, observed_y)
+                dev = self.device
+                train_idx = torch.from_numpy(pad_idx).to(dev)
+                y = torch.from_numpy(pad_y).to(dev)
+                mask_t = torch.from_numpy(mask).to(dev)
 
-        if self._should_retrain(observed_idx.size):
-            t0 = time.perf_counter()
-            res = iterative.fit(
-                self.features, train_idx, y, kind=self.kind, generator=self.generator,
-                init=self.cached_params, learning_rate=self.learning_rate,
-                num_steps=self.train_epochs, settings=self.settings, mask=mask_t,
-                num_real=float(observed_idx.size),
-            )
-            self.cached_params = res.params
-            self.last_training_size = observed_idx.size
-            self._sync()
-            self.phase_seconds["fit"].append(time.perf_counter() - t0)
+            if self._should_retrain(observed_idx.size):
+                with profiling.timed("bo.fit") as phase:
+                    res = iterative.fit(
+                        self.features, train_idx, y, kind=self.kind, generator=self.generator,
+                        init=self.cached_params, learning_rate=self.learning_rate,
+                        num_steps=self.train_epochs, settings=self.settings, mask=mask_t,
+                        num_real=float(observed_idx.size),
+                    )
+                    self.cached_params = res.params
+                    self.last_training_size = observed_idx.size
+                    self._sync()
+                self.phase_seconds["fit"].append(phase.seconds)
 
-        # Thompson-sample at ALL nodes, then exclude everything ever visited
-        # and the currently observed set on the host.
-        t0 = time.perf_counter()
-        sample = iterative.pathwise_predict(
-            self.features, self.cached_params, train_idx, y,
-            torch.arange(self.n_nodes, device=dev), kind=self.kind, num_samples=1,
-            settings=self.settings, mask=mask_t, generator=self.generator,
-        )[0]
-        scores = sample.cpu().numpy().astype(np.float32, copy=True)
-        self.phase_seconds["draw"].append(time.perf_counter() - t0)
-        exclude = np.union1d(
-            np.fromiter(self.visited, dtype=np.int64, count=len(self.visited)), observed_idx
-        ).astype(np.int64)
-        scores[exclude] = -np.inf
-        n_avail = self.n_nodes - exclude.size
-        take = min(batch_size, max(n_avail, 0))
-        if take == 0:
-            return []
-        top = np.argpartition(-scores, take - 1)[:take]
-        return top[np.argsort(-scores[top])].tolist()
+            # Thompson-sample at ALL nodes, then exclude everything ever visited
+            # and the currently observed set on the host.
+            with profiling.timed("bo.draw") as phase:
+                sample = iterative.pathwise_predict(
+                    self.features, self.cached_params, train_idx, y,
+                    torch.arange(self.n_nodes, device=dev), kind=self.kind, num_samples=1,
+                    settings=self.settings, mask=mask_t, generator=self.generator,
+                )[0]
+                with profiling.host_sync():
+                    scores = sample.cpu().numpy().astype(np.float32, copy=True)
+            self.phase_seconds["draw"].append(phase.seconds)
+            with profiling.span("bo.pick"):
+                visited = np.fromiter(self.visited, dtype=np.int64, count=len(self.visited))
+                exclude = np.union1d(visited, observed_idx).astype(np.int64)
+                scores[exclude] = -np.inf
+                n_avail = self.n_nodes - exclude.size
+                take = min(batch_size, max(n_avail, 0))
+                if take == 0:
+                    return []
+                top = np.argpartition(-scores, take - 1)[:take]
+                return top[np.argsort(-scores[top])].tolist()
 
     def update(self, observed_idx, observed_y):
         self.visited.update(int(i) for i in observed_idx)

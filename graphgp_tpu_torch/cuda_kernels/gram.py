@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .stencil import MAX_BATCH, MAX_OFFSETS, _device_plan, center_offsets, matvec_plain
 
@@ -157,6 +158,13 @@ def _cg(
     when no system is active or after ``max_iters``. ``matvec`` returns
     ``(A p, ⟨p, A p⟩)``. The convergence test reads one flag on the host, one
     synchronize per iteration."""
+    with profiling.span("gram_cg"):
+        res = _cg_rows(matvec, b_rhs, tol, max_iters)
+        profiling.count("cg.iterations", res.iterations)
+    return res
+
+
+def _cg_rows(matvec, b_rhs, tol, max_iters) -> GramCGResult:
     x = torch.zeros_like(b_rhs)
     r = b_rhs.clone()
     p = r.clone()
@@ -166,7 +174,9 @@ def _cg(
     it = 0
     while it < max_iters:
         active = rz > threshold
-        if not bool(active.any()):
+        with profiling.host_sync():
+            converged = not bool(active.any())
+        if converged:
             break
         ap, denom = matvec(p)
         alpha = torch.where(denom != 0, rz / torch.where(denom != 0, denom, 1.0), 0.0)

@@ -39,6 +39,7 @@ import torch
 from .cuda_kernels import stencil as k_stencil
 from .cuda_kernels import stencil_build as k_build
 from .linalg import _as_rows
+from .utils import profiling
 from .walker import WalkLog
 
 # Dead-lane sentinel: halted walks carry load 0. Sending their positions to
@@ -307,7 +308,9 @@ def max_row_distinct(log: WalkLog) -> torch.Tensor:
 def suggest_row_capacity(log: WalkLog, multiple: int = 8) -> int:
     """Max distinct live nodes over all rows, rounded up to ``multiple``."""
     w = log.walks_per_node
-    cap = max(int(max_row_distinct(log)), 1)
+    distinct = max_row_distinct(log)
+    with profiling.host_sync():
+        cap = max(int(distinct), 1)
     return min(((cap + multiple - 1) // multiple) * multiple, w)
 
 
@@ -780,10 +783,12 @@ def ell_to_stencil(
     the offset vocabulary is too large. One-time cost; cache the result."""
     if mats.num_target_nodes != mats.num_nodes:
         return None
-    offsets = offset_vocabulary(mats, max_offsets, chunk_rows)
+    with profiling.span("prep.vocabulary"):
+        offsets = offset_vocabulary(mats, max_offsets, chunk_rows)
     if offsets is None:
         return None
-    vals = k_build.ell_to_stencil(mats.cols, mats.vals, torch.from_numpy(offsets))
+    with profiling.span("prep.stencil_build"):
+        vals = k_build.ell_to_stencil(mats.cols, mats.vals, torch.from_numpy(offsets))
     return StencilStepMatrices(vals=vals, offsets=offsets)
 
 

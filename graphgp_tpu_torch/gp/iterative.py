@@ -24,6 +24,7 @@ import torch
 from ..cuda_kernels import gram
 from ..features import ContractedStencil, contract
 from ..linalg import batched_cg, cg_solve, rademacher_probes, slq_logdet
+from ..utils import profiling
 from . import params as P
 
 _LOG2PI = 1.8378770664093453
@@ -288,48 +289,58 @@ def pathwise_predict(
     Requires distinct live train node ids (masked slots may repeat node 0
     with value 0).
     """
-    dev = y.device
-    f = P.modulator(kind, params, feats.max_walk_length)
-    phi = contract(feats, f)
-    n = feats.num_nodes
-    nt = feats.num_target_nodes
-    noise_var = P.noise_variance(params)
-    if eps1 is None:
-        eps1 = torch.randn((num_samples, nt), generator=generator, device=dev)
-    if eps2 is None:
-        eps2 = torch.randn((num_samples, train_idx.shape[0]), generator=generator, device=dev)
-    prior_all = phi.matvec_bm(eps1)  # (S, N) prior sample paths Φ ε₁
-    f_train_prior = prior_all[:, train_idx]
-    f_test_prior = prior_all[:, test_idx]
-    b = y[None, :] - (f_train_prior + torch.sqrt(noise_var) * eps2)
-    if mask is not None:
-        # padded residuals are zeroed, so their solution components stay 0
-        b = b * mask[None, :]
+    with profiling.span("gp.predict"):
+        dev = y.device
+        with profiling.span("gp.predict.prior"):
+            f = P.modulator(kind, params, feats.max_walk_length)
+            phi = contract(feats, f)
+            n = feats.num_nodes
+            nt = feats.num_target_nodes
+            noise_var = P.noise_variance(params)
+            if eps1 is None:
+                eps1 = torch.randn((num_samples, nt), generator=generator, device=dev)
+            if eps2 is None:
+                eps2 = torch.randn((num_samples, train_idx.shape[0]), generator=generator,
+                                   device=dev)
+            prior_all = phi.matvec_bm(eps1)  # (S, N) prior sample paths Φ ε₁
+            f_train_prior = prior_all[:, train_idx]
+            f_test_prior = prior_all[:, test_idx]
+            b = y[None, :] - (f_train_prior + torch.sqrt(noise_var) * eps2)
+            if mask is not None:
+                # padded residuals are zeroed, so their solution components stay 0
+                b = b * mask[None, :]
+        with profiling.span("gp.predict.solve"):
+            v_full = _predict_solve(phi, noise_var, train_idx, b, n, mask, full_space, settings)
+        with profiling.span("gp.predict.correction"):
+            correction = phi.matvec_bm(phi.rmatvec_bm(v_full))[:, test_idx]
+            return f_test_prior + correction
+
+
+def _predict_solve(phi, noise_var, train_idx, b, n, mask, full_space, settings):
+    """``pathwise_predict``'s residual solve, scattered to the full node space."""
+    dev = b.device
     if full_space and isinstance(phi, ContractedStencil):
         live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
-        v_full = _fused_gram_solve_bm(
+        return _fused_gram_solve_bm(
             phi, noise_var, _node_mask(train_idx, live, n), _expand_add(b, train_idx, n), settings
         )
-    elif full_space:
+    if full_space:
         # the ELL and dense layouts have no fused solve: the same operator
         # through batched_cg, as the JAX package routes them
         live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
         carry = (phi, noise_var, _node_mask(train_idx, live, n))
-        v_full = batched_cg(
+        return batched_cg(
             make_gram_matvec_bm_full(), carry, _expand_add(b, train_idx, n),
             tol=settings.cg_tol, max_iters=settings.cg_max_iters,
         ).x
+    if mask is None:
+        matvec = make_gram_matvec_bm()
+        carry = (phi, noise_var, train_idx)
     else:
-        if mask is None:
-            matvec = make_gram_matvec_bm()
-            carry = (phi, noise_var, train_idx)
-        else:
-            matvec = make_gram_matvec_bm_masked()
-            carry = (phi, noise_var, train_idx, mask)
-        v = batched_cg(matvec, carry, b, tol=settings.cg_tol, max_iters=settings.cg_max_iters).x
-        v_full = _expand_add(v, train_idx, n)
-    correction = phi.matvec_bm(phi.rmatvec_bm(v_full))[:, test_idx]
-    return f_test_prior + correction
+        matvec = make_gram_matvec_bm_masked()
+        carry = (phi, noise_var, train_idx, mask)
+    v = batched_cg(matvec, carry, b, tol=settings.cg_tol, max_iters=settings.cg_max_iters).x
+    return _expand_add(v, train_idx, n)
 
 
 class PosteriorSummary(NamedTuple):
@@ -376,35 +387,43 @@ def fit(
     set is at least an eighth of the graph and its ids are distinct; True
     demands distinct ids.
     """
-    dev = y.device
-    if init is None:
-        init = P.init_params(kind, feats.max_walk_length, generator=generator, device=dev)
-    if mask is not None and num_real is None:
-        num_real = mask.sum()
-    if full_space is None:
-        full_space = (
-            mask is None and train_idx.shape[0] * 8 >= feats.num_nodes and _distinct(train_idx)
+    with profiling.span("gp.fit"):
+        dev = y.device
+        if init is None:
+            init = P.init_params(kind, feats.max_walk_length, generator=generator, device=dev)
+        if mask is not None and num_real is None:
+            num_real = mask.sum()
+        if full_space is None:
+            full_space = (
+                mask is None and train_idx.shape[0] * 8 >= feats.num_nodes
+                and _distinct(train_idx)
+            )
+        elif full_space and not _distinct(train_idx):
+            # the full-space scatter would merge repeated observations of a node
+            raise ValueError(
+                "full_space=True requires distinct train node ids (use the compact "
+                "path for repeated observations)"
+            )
+        p = {k: v.detach().clone().to(dev).requires_grad_(True) for k, v in init.items()}
+        opt = torch.optim.Adam(list(p.values()), lr=learning_rate)
+        losses = []
+        for i in range(num_steps):
+            with profiling.span("gp.step"):
+                opt.zero_grad(set_to_none=True)
+                with profiling.span("gp.mll"):
+                    loss = -mll_cg(
+                        feats, p, train_idx, y, kind=kind, settings=settings, mask=mask,
+                        num_real=num_real, full_space=full_space,
+                        probes=None if probes is None else probes[i], generator=generator,
+                    )
+                # the adjoint and probe solves; on a card autograd runs
+                # them on its own thread, which nests in this span
+                with profiling.span("gp.backward", lend=True):
+                    loss.backward()
+                with profiling.span("gp.adam"):
+                    opt.step()
+                losses.append(loss.detach())
+        return FitResult(
+            params={k: v.detach() for k, v in p.items()},
+            losses=torch.stack(losses) if losses else torch.zeros(0, device=dev),
         )
-    elif full_space and not _distinct(train_idx):
-        # the full-space scatter would merge repeated observations of a node
-        raise ValueError(
-            "full_space=True requires distinct train node ids (use the compact "
-            "path for repeated observations)"
-        )
-    p = {k: v.detach().clone().to(dev).requires_grad_(True) for k, v in init.items()}
-    opt = torch.optim.Adam(list(p.values()), lr=learning_rate)
-    losses = []
-    for i in range(num_steps):
-        opt.zero_grad(set_to_none=True)
-        loss = -mll_cg(
-            feats, p, train_idx, y, kind=kind, settings=settings, mask=mask,
-            num_real=num_real, full_space=full_space,
-            probes=None if probes is None else probes[i], generator=generator,
-        )
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    return FitResult(
-        params={k: v.detach() for k, v in p.items()},
-        losses=torch.stack(losses) if losses else torch.zeros(0, device=dev),
-    )

@@ -20,6 +20,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .utils import profiling
+
 Matvec = Callable[[Any, torch.Tensor], torch.Tensor]
 
 
@@ -69,6 +71,14 @@ def batched_cg(
         if b.dim() == 1:
             return CGResult(res.x[0], res.iterations, res.residual_norm[0])
         return CGResult(res.x.T, res.iterations, res.residual_norm)
+    with profiling.span("cg"):
+        res = _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond)
+        profiling.count("cg.iterations", res.iterations)
+        profiling.count("cg.solves")
+    return res
+
+
+def _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond) -> CGResult:
     single = b.dim() == 1
     if single:
         b = b[None, :]
@@ -88,7 +98,9 @@ def batched_cg(
     it = 0
     while it < max_iters:
         active = residual(rr) > tol
-        if not bool(active.any()):
+        with profiling.host_sync():
+            converged = not bool(active.any())
+        if converged:
             break
         ap = matvec(carry, p)
         denom = (p * ap).sum(dim=-1)
@@ -217,6 +229,13 @@ def lanczos(
         rows = _as_rows(v0) if batch_axis == 1 else v0[None, :]
         alphas, betas = lanczos(mv, carry, rows, num_iters, reorthogonalize=reorthogonalize)
         return (alphas[:, 0], betas[:, 0]) if v0.dim() == 1 else (alphas, betas)
+    with profiling.span("lanczos"):
+        out = _lanczos_rows(matvec, carry, v0, num_iters, reorthogonalize)
+        profiling.count("lanczos.iterations", num_iters)
+    return out
+
+
+def _lanczos_rows(matvec, carry, v0, num_iters, reorthogonalize):
     bsz = v0.shape[0]
     q = v0 / torch.clamp(torch.linalg.vector_norm(v0, dim=-1, keepdim=True), min=1e-30)
     q_prev = torch.zeros_like(q)

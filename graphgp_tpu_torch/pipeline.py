@@ -23,6 +23,7 @@ import torch
 from .devices import resolve_device
 from .features import EllFeatures, EllStepMatrices, _consolidate_rows, max_row_distinct
 from .graphs import PackedGraph
+from .utils import profiling
 from .walker import WalkConfig, sample_walk_log
 
 # Budget for one block's (L, B, W) curs+loads log. Consolidation holds about
@@ -60,13 +61,17 @@ def _blocked_consolidate(graph, seed, cfg, capacity, block, num_blocks):
     for bix in range(num_blocks):
         start = bix * block
         size = min(block, n - start)
-        log = sample_walk_log(graph, seed, cfg, node_offset=start, num_start_nodes=size)
-        c, v, maxd = _consolidate_rows(log.curs, log.loads * inv_w, capacity)
-        del log
-        cols[:, start : start + size] = c
-        vals[:, start : start + size] = v
-        maxds.append(maxd)
-    return cols, vals, int(torch.stack(maxds).max())
+        with profiling.span("prep.walks"):
+            log = sample_walk_log(graph, seed, cfg, node_offset=start, num_start_nodes=size)
+        with profiling.span("prep.consolidate"):
+            c, v, maxd = _consolidate_rows(log.curs, log.loads * inv_w, capacity)
+            del log
+            cols[:, start : start + size] = c
+            vals[:, start : start + size] = v
+            maxds.append(maxd)
+    largest = torch.stack(maxds).max()
+    with profiling.host_sync():
+        return cols, vals, int(largest)
 
 
 def blocked_ell_features(
@@ -104,9 +109,13 @@ def blocked_ell_features(
     num_blocks = -(-n // block)
 
     if capacity is None:
-        probe = sample_walk_log(graph, seed, cfg, node_offset=0, num_start_nodes=block)
-        probed = max(int(max_row_distinct(probe)), 1)
-        del probe
+        with profiling.span("prep.walks"):
+            probe = sample_walk_log(graph, seed, cfg, node_offset=0, num_start_nodes=block)
+        with profiling.span("prep.consolidate"):
+            distinct = max_row_distinct(probe)
+            del probe
+            with profiling.host_sync():
+                probed = max(int(distinct), 1)
         capacity = min(_round_up(int(probed * capacity_margin), multiple), w)
 
     while True:

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +31,7 @@ from .features import (
 )
 from .graphs import pack_laplacian
 from .pipeline import DEFAULT_LOG_BUDGET_BYTES, blocked_ell_features
+from .utils import profiling
 from .walker import WalkConfig, sample_walk_log
 
 def _cache_key(adjacency, cfg: WalkConfig, seed: int) -> str:
@@ -97,46 +97,57 @@ def preprocess_graph(
     seconds of the walk+consolidate, stencil conversion (``stencil_build_s``),
     or of the offset scan that rules the stencil out (``vocabulary_s``) and
     the transpose (``transpose_s``), each ended by a device
-    synchronize, and the intermediate ELL step matrices (``"ell"``).
+    synchronize, and the intermediate ELL step matrices (``"ell"``). The
+    seconds are the readings of the recorder's ``prep.pack_laplacian``,
+    ``prep.layout`` and ``prep.transpose`` spans (``utils.profiling``) to
+    the end of that synchronize.
     """
-    if layout not in ("ell", "auto"):
-        raise ValueError(f"unknown layout {layout!r}; expected 'ell' or 'auto'")
-    dev = resolve_device(device)
-    budget = DEFAULT_LOG_BUDGET_BYTES if log_budget_bytes is None else log_budget_bytes
-    base = None
-    if cache_dir is not None:
-        base = os.path.join(cache_dir, f"step_matrices_{_cache_key(adjacency, cfg, seed)}")
-        if os.path.exists(base + ".npz"):
-            if layout == "auto":
-                cached = _load_layout_sidecar(base, dev)
-                if cached is not None:
-                    return cached
-            return _apply_layout(load_step_matrices(base + ".npz", dev), layout, base, trace)
+    with profiling.span("prep.build"):
+        if layout not in ("ell", "auto"):
+            raise ValueError(f"unknown layout {layout!r}; expected 'ell' or 'auto'")
+        dev = resolve_device(device)
+        budget = DEFAULT_LOG_BUDGET_BYTES if log_budget_bytes is None else log_budget_bytes
+        base = None
+        if cache_dir is not None:
+            base = os.path.join(cache_dir, f"step_matrices_{_cache_key(adjacency, cfg, seed)}")
+            if os.path.exists(base + ".npz"):
+                if layout == "auto":
+                    cached = _load_layout_sidecar(base, dev)
+                    if cached is not None:
+                        return cached
+                return _apply_layout(load_step_matrices(base + ".npz", dev), layout, base, trace)
 
-    t0 = time.perf_counter()
-    graph = pack_laplacian(adjacency).to(dev)
-    n = graph.num_nodes
-    if cfg.max_walk_length * n * cfg.walks_per_node * 8 > budget:
-        mats = blocked_ell_features(
-            graph, seed, cfg, log_budget_bytes=budget, device=dev
-        ).mats
-    else:
-        log = sample_walk_log(graph, seed, cfg)
-        mats = consolidate(log, suggest_row_capacity(log), walks_per_node=cfg.walks_per_node)
-        del log
-    _record(trace, "walk_consolidate_s", t0, dev)
+        with profiling.timed("prep.pack_laplacian", trace is not None) as pack:
+            graph = pack_laplacian(adjacency).to(dev)
+        n = graph.num_nodes
+        if cfg.max_walk_length * n * cfg.walks_per_node * 8 > budget:
+            mats = blocked_ell_features(
+                graph, seed, cfg, log_budget_bytes=budget, device=dev
+            ).mats
+        else:
+            with profiling.span("prep.walks"):
+                log = sample_walk_log(graph, seed, cfg)
+            with profiling.span("prep.consolidate"):
+                mats = consolidate(log, suggest_row_capacity(log),
+                                   walks_per_node=cfg.walks_per_node)
+            del log
+        _record(trace, "walk_consolidate_s", pack, dev)
+        if trace is not None:
+            trace["ell"] = mats
+        if base is not None:
+            save_step_matrices(base + ".npz", mats)
+        return _apply_layout(mats, layout, base, trace)
+
+
+def _record(trace, name, start: profiling.Span, dev) -> None:
+    """``trace[name]``: the seconds from ``start``'s first reading to the end
+    of a device synchronize, so the phase holds the device work it queued."""
     if trace is not None:
-        trace["ell"] = mats
-    if base is not None:
-        save_step_matrices(base + ".npz", mats)
-    return _apply_layout(mats, layout, base, trace)
-
-
-def _record(trace, name, t0, dev) -> None:
-    if trace is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        trace[name] = time.perf_counter() - t0
+        with profiling.timed("sync") as done:
+            if dev.type == "cuda":
+                profiling.count("host.syncs")
+                torch.cuda.synchronize(dev)
+        trace[name] = (done.end_ns - start.start_ns) * 1e-9
 
 
 def _load_layout_sidecar(base: str, device):
@@ -166,24 +177,24 @@ def _apply_layout(mats: EllStepMatrices, layout: str, base: Optional[str], trace
     sidecar next to the ELL cache."""
     if layout != "auto":
         return EllFeatures(mats)
-    t0 = time.perf_counter()
-    max_offsets = min(256, max(64, int(mats.num_nodes ** 0.5)))
-    stencil = ell_to_stencil(mats, max_offsets=max_offsets)
-    if stencil is not None:
-        _record(trace, "stencil_build_s", t0, stencil.vals.device)
+    with profiling.timed("prep.layout", trace is not None) as phase:
+        max_offsets = min(256, max(64, int(mats.num_nodes ** 0.5)))
+        stencil = ell_to_stencil(mats, max_offsets=max_offsets)
+        if stencil is not None:
+            _record(trace, "stencil_build_s", phase, stencil.vals.device)
+            if base is not None:
+                np.savez(
+                    base + ".stencil.npz",
+                    vals=stencil.vals.cpu().numpy(),
+                    offsets=np.asarray(stencil.offsets),
+                )
+            return StencilFeatures(stencil)
+        _record(trace, "vocabulary_s", phase, mats.cols.device)
+        with profiling.timed("prep.transpose", trace is not None) as transpose:
+            feats = with_transpose(EllFeatures(mats))
+            _record(trace, "transpose_s", transpose, mats.cols.device)
         if base is not None:
             np.savez(
-                base + ".stencil.npz",
-                vals=stencil.vals.cpu().numpy(),
-                offsets=np.asarray(stencil.offsets),
+                base + ".csc.npz", **{k: getattr(feats.csc, k).cpu().numpy() for k in CSC_FIELDS}
             )
-        return StencilFeatures(stencil)
-    _record(trace, "vocabulary_s", t0, mats.cols.device)
-    t0 = time.perf_counter()
-    feats = with_transpose(EllFeatures(mats))
-    _record(trace, "transpose_s", t0, mats.cols.device)
-    if base is not None:
-        np.savez(
-            base + ".csc.npz", **{k: getattr(feats.csc, k).cpu().numpy() for k in CSC_FIELDS}
-        )
-    return feats
+        return feats
