@@ -963,6 +963,28 @@ def contract(feats, f: torch.Tensor):
     raise TypeError(f"contract(): no feature layout {type(feats).__name__}")
 
 
+def step_rows(feats, idx: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The entries of every step matrix in rows ``idx``, as (cols, vals):
+    vals (L, R, K) float32 and int64 column ids in the target space, (L, R,
+    K) on ELL and (1, R, K) on a stencil, whose columns are the same at
+    every step. None for the other layouts.
+
+    Within one step a row's nonzero entries have distinct columns: ELL
+    padding is column 0 with value 0, and in a stencil built by
+    :func:`ell_to_stencil` offsets that alias mod N carry weight 0 in all
+    but one of them. Stencil columns wrap mod N, as K1's products do."""
+    if isinstance(feats, StencilFeatures):
+        vals = feats.mats.vals
+        idx = idx.to(device=vals.device, dtype=torch.int64)
+        offs = torch.as_tensor(feats.mats.offsets, dtype=torch.int64, device=vals.device)
+        cols = torch.remainder(idx[:, None] + offs[None, :], feats.num_nodes)
+        return cols[None], vals[:, :, idx].transpose(1, 2)
+    if isinstance(feats, EllFeatures):
+        idx = idx.to(device=feats.mats.cols.device, dtype=torch.int64)
+        return feats.mats.cols[:, idx].to(torch.int64), feats.mats.vals[:, idx]
+    return None
+
+
 def ell_to_dense(mats: EllStepMatrices) -> torch.Tensor:
     """(L, N, Nt) dense reconstruction, for tests and small N: one flat
     scatter-add (padded slots add 0 to column 0)."""

@@ -1,7 +1,13 @@
 """Large-N GP inference: CG marginal likelihood and pathwise conditioning.
 
-Counterpart of ``graphgp_tpu/gp/iterative.py``. The train-block Gram matvec
-is composed from full-graph Φ products of a contracted operator
+Counterpart of ``graphgp_tpu/gp/iterative.py``. A fit solves at its train
+slots t with a dense ``K_tt = Φ_t Φ_tᵀ`` formed from a train block
+(:class:`TrainBlock`): Φ is linear in the modulator, ``Φ = Σ_l f_l M_l``,
+so ``K_tt = Σ_{l,m} f_l f_m G_lm`` with ``G_lm = M_l[t,:] M_m[t,:]ᵀ``,
+built once per fit from the train rows of each step matrix. Where no block
+applies (layouts other than stencil and ELL, full-space solves, a block
+over :data:`TRAIN_BLOCK_BUDGET`) and in the draws, the Gram matvec is
+composed from full-graph Φ products of a contracted operator
 (``features.contract``), so no N×N matrix ever exists:
 
     K_tt v = (Φ (Φᵀ expand(v)))[train]
@@ -22,7 +28,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..cuda_kernels import gram
-from ..features import ContractedStencil, contract
+from ..features import ContractedStencil, contract, step_rows
 from ..linalg import batched_cg, cg_solve, rademacher_probes, slq_logdet
 from ..utils import profiling
 from . import params as P
@@ -128,6 +134,7 @@ def make_gram_matvec_bm():
     def matvec(carry, v):
         if v.dim() == 1:
             return matvec(carry, v[None, :])[0]
+        profiling.count("gram.full_graph")
         phi, noise_var, train_idx = carry
         u = phi.rmatvec_bm(_expand_add(v, train_idx, phi.num_nodes))
         return phi.matvec_bm(u)[:, train_idx] + noise_var * v
@@ -144,6 +151,7 @@ def make_gram_matvec_bm_masked():
     def matvec(carry, v):
         if v.dim() == 1:
             return matvec(carry, v[None, :])[0]
+        profiling.count("gram.full_graph")
         phi, noise_var, train_idx, mask = carry
         vm = v * mask[None, :]
         expanded = _expand_add(vm, train_idx, phi.num_nodes)
@@ -160,10 +168,89 @@ def make_gram_matvec_bm_full():
     def matvec(carry, v):
         if v.dim() == 1:
             return matvec(carry, v[None, :])[0]
+        profiling.count("gram.full_graph")
         phi, noise_var, node_mask = carry
         vm = v * node_mask[None, :]
         kv = phi.matvec_bm(phi.rmatvec_bm(vm)) * node_mask[None, :]
         return kv + noise_var * vm + (v - vm)
+
+    return matvec
+
+
+# The train block's budget in float32 entries: its (L·T, C) train rows and
+# its (L·T)² Gram matrix, for T train slots whose rows reach at most C
+# distinct columns (bounded before the build by min(N, the rows' entries)).
+# 2^28 entries are 1 GiB; the 1000×1000 grid's block at T = 1010 (L 5, ≤ 41
+# offsets a row) takes 0.94 GiB beside its 9 GiB of features, and its Gram
+# product, 2·(L·T)²·C ≈ 2 TFLOP, tens of ms on an H100 in float32, is small
+# beside the thousands of full-graph products of a fit. Over the budget the
+# build's memory and product grow as T² and T³ while the full-graph products
+# need only their vectors: the fit keeps those.
+TRAIN_BLOCK_BUDGET = 1 << 28
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainBlock:
+    """``G[l, a, m, b] = (M_l[t,:] M_m[t,:]ᵀ)[a, b]`` for the train slots t
+    of one fit, float32 (L, T, L, T): the Gram matrix of every pair of walk
+    steps' train rows, fixed while the modulator moves."""
+
+    gram: torch.Tensor
+
+    def k_tt(self, f: torch.Tensor) -> torch.Tensor:
+        """``K_tt = Φ_t Φ_tᵀ = Σ_{l,m} f_l f_m G_lm`` (T, T), differentiable
+        in the modulator f."""
+        f = f.to(self.gram.dtype)
+        return torch.einsum("l,lamb,m->ab", f, self.gram, f)
+
+
+def build_train_block(feats, train_idx: torch.Tensor) -> Optional[TrainBlock]:
+    """The train block of ``train_idx`` (slots may repeat a node), or None
+    where none applies: a layout other than stencil or ELL, or a block over
+    :data:`TRAIN_BLOCK_BUDGET`.
+
+    One gather of the train rows of each step, one sort that compacts their
+    column ids, one scatter of the rows into a dense (L·T, C) matrix and
+    one matrix product. The result does not depend on the order of the
+    scatter's adds, since each entry receives at most one nonzero value
+    (``features.step_rows``), so two builds are bit-identical."""
+    rows = step_rows(feats, train_idx)
+    if rows is None:
+        return None
+    cols, vals = rows
+    l, t, _ = vals.shape
+    lt = l * t
+    if lt * min(feats.num_target_nodes, cols.numel()) + lt * lt > TRAIN_BLOCK_BUDGET:
+        return None
+    with profiling.span("gp.train_block"):
+        with profiling.host_sync():  # the count of distinct columns sizes the block
+            ids, inv = torch.unique(cols, return_inverse=True)
+        c = ids.numel()
+        slot = torch.arange(lt, device=vals.device).view(l, t, 1) * c
+        dense = torch.zeros(lt * c, dtype=torch.float32, device=vals.device)
+        dense = dense.index_add(0, (slot + inv).reshape(-1), vals.reshape(-1)).view(lt, c)
+        return TrainBlock((dense @ dense.T).view(l, t, l, t))
+
+
+def make_gram_matvec_block():
+    """Batch-major Gram matvec on the train block's dense ``K_tt``:
+    ``M K M V + σ² M V + (I − M) V`` for the 0/1 slot mask M, or
+    ``K V + σ² V`` when the mask is None. carry = (k_tt, noise_var, mask).
+
+    A slot that repeats a node repeats its row of K, so repeated
+    observations add up as the full-graph product's scatter-add does; a
+    padded slot's entry of V is masked to 0 before the product, so it adds
+    nothing to a real observation of its node."""
+
+    def matvec(carry, v):
+        if v.dim() == 1:
+            return matvec(carry, v[None, :])[0]
+        profiling.count("gram.train_block")
+        k_tt, noise_var, mask = carry
+        if mask is None:
+            return v @ k_tt + noise_var * v
+        vm = v * mask[None, :]
+        return (vm @ k_tt) * mask[None, :] + noise_var * vm + (v - vm)
 
     return matvec
 
@@ -211,6 +298,7 @@ def mll_cg(
     full_space: bool = False,
     probes: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    train_block: Optional[TrainBlock] = None,
 ) -> torch.Tensor:
     """Stochastic estimate of the log marginal likelihood for big N:
     ``−½ (yᵀA⁻¹y + logdet A + n log 2π)``, the quadratic by a differentiable
@@ -218,15 +306,18 @@ def mll_cg(
 
     ``mask``/``num_real`` select the padded fixed-capacity buffers (padded y
     must be 0). ``probes`` are Rademacher rows, (P, n) or (P, N) in full
-    space, before masking; by default drawn from ``generator``.
+    space, before masking; by default drawn from ``generator``. The compact
+    solves run on ``train_block`` (:func:`build_train_block` of this
+    ``train_idx``), built here when none is given, or on full-graph
+    products where no block applies.
     """
     n = y.shape[0]
     dev = y.device
     f = P.modulator(kind, params, feats.max_walk_length)
-    phi = contract(feats, f)
     noise_var = P.noise_variance(params)
     n_term = float(n) if mask is None else torch.as_tensor(num_real, dtype=torch.float32, device=dev)
     if full_space:
+        phi = contract(feats, f)
         nn = feats.num_nodes
         live = mask if mask is not None else torch.ones(n, device=dev)
         ym = y if mask is None else y * mask
@@ -238,12 +329,17 @@ def mll_cg(
             probes = rademacher_probes(nn, settings.num_probes, generator, dev)
         probes = probes * node_mask[None, :]
     else:
-        if mask is None:
+        if train_block is None:
+            train_block = build_train_block(feats, train_idx)
+        if train_block is not None:
+            matvec = make_gram_matvec_block()
+            carry = (train_block.k_tt(f), noise_var, mask)
+        elif mask is None:
             matvec = make_gram_matvec_bm()
-            carry = (phi, noise_var, train_idx)
+            carry = (contract(feats, f), noise_var, train_idx)
         else:
             matvec = make_gram_matvec_bm_masked()
-            carry = (phi, noise_var, train_idx, mask)
+            carry = (contract(feats, f), noise_var, train_idx, mask)
         y_solve = y
         if probes is None:
             probes = rademacher_probes(n, settings.num_probes, generator, dev)
@@ -385,7 +481,9 @@ def fit(
     default every step draws fresh ones from ``generator``. ``full_space``
     None picks the full-node-space solver when there is no mask, the train
     set is at least an eighth of the graph and its ids are distinct; True
-    demands distinct ids.
+    demands distinct ids. A compact fit builds its train block once
+    (:func:`build_train_block`): the train set and mask are fixed for all of
+    its steps.
     """
     with profiling.span("gp.fit"):
         dev = y.device
@@ -404,6 +502,7 @@ def fit(
                 "full_space=True requires distinct train node ids (use the compact "
                 "path for repeated observations)"
             )
+        block = None if full_space else build_train_block(feats, train_idx)
         p = {k: v.detach().clone().to(dev).requires_grad_(True) for k, v in init.items()}
         opt = torch.optim.Adam(list(p.values()), lr=learning_rate)
         losses = []
@@ -415,6 +514,7 @@ def fit(
                         feats, p, train_idx, y, kind=kind, settings=settings, mask=mask,
                         num_real=num_real, full_space=full_space,
                         probes=None if probes is None else probes[i], generator=generator,
+                        train_block=block,
                     )
                 # the adjoint and probe solves; on a card autograd runs
                 # them on its own thread, which nests in this span

@@ -51,12 +51,13 @@ def test_isolated_sweep_gives_the_in_process_rows(tmp_path, capsys):
 
 
 def test_a_cell_past_its_timeout_is_one_error_row_and_the_sweep_goes_on(tmp_path, capsys):
-    """The GP cell (4096 nodes, 1000 walks a node, 20 iterations of 100
-    epochs: ~50 s on one thread) cannot finish in 12 s: it is killed, run
-    once more, killed again, and left as one error row naming the timeout;
-    the random-search cell after it (~4 s) runs."""
-    records = bo.main(["--graph-type", "grid", "--n-nodes", "4096", "--iterations", "20",
-                       "--walks-per-node", "1000", "--train-epochs", "100", "--bo-seeds", "100",
+    """The GP cell (16 384 nodes, 1000 walks a node, 20 iterations each
+    refitting with 100 epochs: ~60 s on one thread) cannot finish in 12 s:
+    it is killed, run once more, killed again, and left as one error row
+    naming the timeout; the random-search cell after it (~4 s) runs."""
+    records = bo.main(["--graph-type", "grid", "--n-nodes", "16384", "--iterations", "20",
+                       "--walks-per-node", "1000", "--train-epochs", "100",
+                       "--gp-retrain-interval", "1", "--bo-seeds", "100",
                        "--algorithms", "grf_thompson", "random_search", "--device", "cpu",
                        "--isolate", "--cell-timeout", "12",
                        "--cache-dir", str(tmp_path / "cache"),

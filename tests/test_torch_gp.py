@@ -20,7 +20,7 @@ from graphgp_tpu.data.synthetic import generate
 from graphgp_tpu.gp import iterative as jit_
 from graphgp_tpu_torch import linalg as tlin
 from graphgp_tpu_torch.convert import params_from_jax, stencil_from_numpy
-from graphgp_tpu_torch.features import StencilFeatures
+from graphgp_tpu_torch.features import StencilFeatures, contract
 from graphgp_tpu_torch.gp import iterative as tit
 from graphgp_tpu_torch.gp import params as tparams
 
@@ -259,3 +259,117 @@ def test_params_diffusion_kind_matches_jax():
                                float(jparams.noise_variance(pj)), rtol=1e-6)
     with pytest.raises(ValueError):
         params_from_jax({"bogus": np.zeros(1)})
+
+
+# ---------------------------------------------------------------------------
+# The train block against the full-graph products it replaces in the fits.
+# K_tt from the block and the full-graph Gram matvec differ in float32
+# summation order alone: 1e-5 of max |ref| on one product, as the ELL
+# products' tests take it. Through the solves of mll_cg (tol 1e-6) that
+# rounding is amplified a little: rtol 1e-4 on values and gradients, as the
+# parity tests above.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def block_layouts(stencil_pair):
+    """A periodic stencil ring (wraparound offsets live) and the grid."""
+    from graphgp_tpu_torch.data import synthetic
+    from graphgp_tpu_torch.features import stencil_is_periodic
+    from graphgp_tpu_torch.preprocessor import preprocess_graph
+    from graphgp_tpu_torch.walker import WalkConfig
+
+    ring = synthetic.generate("ring", 120, seed=0)
+    rf = preprocess_graph(ring["adjacency"], WalkConfig(64, 0.1, 4), seed=1, layout="auto",
+                          device="cpu")
+    assert isinstance(rf, StencilFeatures) and stencil_is_periodic(rf.mats)
+    _, gf, y_grid = stencil_pair
+    return {"ring": (rf, ring["y_observed"].astype(np.float32)), "grid": (gf, y_grid)}
+
+
+def _slots(y_all, masked, seed=0):
+    """Masked: padded slots repeat node 0 with y 0, and one observation
+    repeats another. Unmasked: 30 slots with one repeated observation."""
+    if masked:
+        idx, y, mask = _padded_obs(y_all, seed=seed)
+        return torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(y), torch.from_numpy(mask)
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(y_all.size, 30, replace=False)
+    idx[5] = idx[3]
+    return torch.from_numpy(idx), torch.from_numpy(y_all[idx]), None
+
+
+def _rel_close(got, ref, rel=1e-5):
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= rel * scale
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+def test_train_block_gram_matvec_equals_full_graph(block_layouts, graph, masked):
+    feats, y_all = block_layouts[graph]
+    idx, _, mask = _slots(y_all, masked)
+    f = torch.from_numpy(_params()["modulator"])
+    nv = torch.tensor(0.2)
+    v = torch.from_numpy(np.random.default_rng(3).normal(size=(5, idx.numel())).astype(np.float32))
+    block = tit.build_train_block(feats, idx)
+    got = tit.make_gram_matvec_block()((block.k_tt(f), nv, mask), v)
+    phi = contract(feats, f)
+    if masked:
+        ref = tit.make_gram_matvec_bm_masked()((phi, nv, idx, mask), v)
+    else:
+        ref = tit.make_gram_matvec_bm()((phi, nv, idx), v)
+    _rel_close(got, ref)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+def test_mll_cg_on_the_train_block_equals_full_graph(block_layouts, graph, masked, monkeypatch):
+    feats, y_all = block_layouts[graph]
+    idx, y, mask = _slots(y_all, masked, seed=1)
+    probes = tlin.rademacher_probes(idx.numel(), 8, torch.Generator().manual_seed(3))
+    settings = tit.CGSettings(**SETTINGS)
+
+    def run():
+        p = {k: v.requires_grad_(True) for k, v in params_from_jax(_params(1)).items()}
+        val = tit.mll_cg(feats, p, idx, y, settings=settings, mask=mask,
+                         num_real=None if mask is None else float(mask.sum()), probes=probes)
+        val.backward()
+        return val.detach(), {k: v.grad for k, v in p.items()}
+
+    assert tit.build_train_block(feats, idx) is not None
+    val, grads = run()
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", 0)
+    assert tit.build_train_block(feats, idx) is None
+    ref_val, ref_grads = run()
+    np.testing.assert_allclose(float(val), float(ref_val), rtol=RTOL)
+    for k in ("modulator", "raw_noise"):
+        np.testing.assert_allclose(grads[k].numpy(), ref_grads[k].numpy(), rtol=RTOL, atol=1e-4)
+    assert torch.all(grads["modulator"] != 0)
+
+
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+def test_two_train_block_builds_are_bit_identical(block_layouts, graph):
+    feats, y_all = block_layouts[graph]
+    idx, _, _ = _slots(y_all, True)
+    a, b = tit.build_train_block(feats, idx), tit.build_train_block(feats, idx)
+    assert a.gram.shape == (4, idx.numel(), 4, idx.numel())
+    assert torch.equal(a.gram, b.gram)
+
+
+def test_a_block_over_the_budget_takes_the_full_graph_path(block_layouts, monkeypatch):
+    """The budget counts the block's (L·T, C) rows, C bounded by
+    min(N, T·S) on a stencil, and its (L·T)² Gram matrix."""
+    feats, y_all = block_layouts["grid"]
+    idx, y, mask = _slots(y_all, True)
+    lt = feats.max_walk_length * idx.numel()
+    need = lt * min(feats.num_nodes, idx.numel() * feats.mats.num_offsets) + lt * lt
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need)
+    assert tit.build_train_block(feats, idx) is not None
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need - 1)
+    assert tit.build_train_block(feats, idx) is None
+    calls = []
+    monkeypatch.setattr(tit, "make_gram_matvec_block", lambda: calls.append(1))
+    tit.mll_cg(feats, params_from_jax(_params()), idx, y, settings=tit.CGSettings(**SETTINGS),
+               mask=mask, num_real=30.0, generator=torch.Generator().manual_seed(0))
+    assert calls == []

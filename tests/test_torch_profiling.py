@@ -12,6 +12,7 @@ import torch
 
 from graphgp_tpu_torch import linalg
 from graphgp_tpu_torch.bo.algorithms import GRFThompson
+from graphgp_tpu_torch.features import DenseFeatures, EllFeatures, StencilFeatures, ell_to_dense
 from graphgp_tpu_torch.gp import iterative
 from graphgp_tpu_torch.gp.iterative import CGSettings
 from graphgp_tpu_torch.preprocessor import preprocess_graph
@@ -197,7 +198,9 @@ def test_fit_and_predict_keep_the_span_tree(feats):
     # probe solves in the backward pass; the draw's residual solve
     assert tree["cg"] == {"gp.mll", "gp.backward", "gp.predict.solve"}
     assert tree["lanczos"] == {"gp.mll"}
-    assert tree["sync"] == {"cg"}
+    # the solvers' flag reads, and the train block's count of its columns
+    assert tree["sync"] == {"cg", "gp.train_block"}
+    assert tree["gp.train_block"] == {"gp.fit"}
     for child in ("gp.predict.prior", "gp.predict.solve", "gp.predict.correction"):
         assert tree[child] == {"gp.predict"}
 
@@ -221,12 +224,57 @@ def test_the_counts_inside_a_fit_are_its_solves(feats, monkeypatch):
     assert len(solves) == 3 * steps  # the forward, adjoint and probe solves a step
     assert c["cg.solves"] == len(solves)
     assert c["cg.iterations"] == sum(solves)
-    # one flag read each iteration, and one more where a solve converged
-    assert c["host.syncs"] == sum(k + (k < SETTINGS.cg_max_iters) for k in solves)
+    # one flag read each iteration, one more where a solve converged, and
+    # the train block's count of its columns, once a fit
+    assert c["host.syncs"] == sum(k + (k < SETTINGS.cg_max_iters) for k in solves) + 1
     assert c["lanczos.iterations"] == steps * SETTINGS.num_lanczos_iters
     assert snap["counts"] == c
     step_counts = [s["counts"]["cg.iterations"] for s in snap["spans"] if s["name"] == "gp.step"]
     assert sum(step_counts) == c["cg.iterations"]
+
+
+@pytest.fixture(scope="module")
+def ell_feats():
+    return preprocess_graph(_skewed(), CFG, seed=1, layout="auto", device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["stencil", "ell", "dense", "full_space"])
+def test_a_fit_counts_its_gram_products_by_path(feats, ell_feats, layout):
+    """The compact fits on the stencil and ELL layouts take every Gram
+    product from the train block, built once a fit; a fit on dense features
+    and a full-space fit take them from full-graph products. Off, the
+    recorder keeps none of it."""
+    f = {"stencil": feats, "ell": ell_feats, "full_space": feats,
+         "dense": DenseFeatures(ell_to_dense(ell_feats.mats))}[layout]
+    assert isinstance(feats, StencilFeatures) and isinstance(ell_feats, EllFeatures)
+    steps = 2
+
+    def run():
+        if layout != "full_space":
+            return _fit(f, steps=steps)
+        train, y, _ = _problem(f)
+        return iterative.fit(f, train, y, num_steps=steps, settings=SETTINGS, full_space=True,
+                             generator=torch.Generator().manual_seed(0))
+
+    profiling.enable()
+    run()
+    snap = profiling.snapshot()
+    (fit,) = [s for s in snap["spans"] if s["name"] == "gp.fit"]
+    c = fit["counts"]
+    # each solve's first residual and iterations, each Lanczos step, and the
+    # two adjoint rules' re-evaluations a step
+    products = c["cg.iterations"] + c["cg.solves"] + c["lanczos.iterations"] + 2 * steps
+    blocks = [s for s in snap["spans"] if s["name"] == "gp.train_block"]
+    if layout in ("stencil", "ell"):
+        assert c["gram.train_block"] == products and "gram.full_graph" not in c
+        assert len(blocks) == 1 and blocks[0]["parent"] == fit["id"]
+    else:
+        assert c["gram.full_graph"] == products and "gram.train_block" not in c
+        assert blocks == []
+    profiling.disable()
+    profiling.reset()
+    run()
+    assert profiling.snapshot() == {"spans": [], "counts": {}}
 
 
 def test_the_feature_build_keeps_its_spans():

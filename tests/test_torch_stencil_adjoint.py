@@ -257,23 +257,44 @@ def test_backward_builds_no_table_and_matches_roll_chain_gradient(monkeypatch):
 
 
 def test_mll_backward_builds_no_table(monkeypatch):
-    """The fit's loss (CG solve and SLQ, whose adjoints re-evaluate the
-    Gram product): its backward builds no shifted table, reaches the
-    modulator, and takes the gradient of every differentiated product
-    through dw_matvec."""
+    """The full-space fit's loss (CG solve and SLQ, whose adjoints
+    re-evaluate the Gram product): its backward builds no shifted table,
+    reaches the modulator, and takes the gradient of every differentiated
+    product through dw_matvec. Full space, since the compact branch solves
+    on the train block and runs no stencil product."""
     feats, rng = _ring_features(n=120, seed=1)
     idx = torch.from_numpy(rng.choice(120, 30, replace=False))
     y = torch.from_numpy(rng.normal(size=30).astype(np.float32))
     probes = torch.from_numpy((rng.integers(0, 2, (4, 30)) * 2 - 1).astype(np.float32))
     params = {"raw_noise": torch.tensor(-1.0),
               "modulator": torch.tensor([1.0, 0.5, 0.25], requires_grad=True)}
-    mll = iterative.mll_cg(feats, params, idx, y, probes=probes,
+    mll = iterative.mll_cg(feats, params, idx, y, full_space=True,
+                           probes=torch.zeros(4, 120).index_add(1, idx, probes),
                            settings=iterative.CGSettings(cg_tol=1e-6, cg_max_iters=100))
     tables = _counting(monkeypatch, "shifted_weights")
     dws = _counting(monkeypatch, "dw_matvec")
     mll.backward()
     assert tables == []
     assert len(dws) == 4  # two adjoint re-evaluations, two products each
+    assert bool(torch.isfinite(params["modulator"].grad).all())
+    assert bool((params["modulator"].grad != 0).any())
+
+
+def test_compact_mll_runs_no_stencil_product(monkeypatch):
+    """The compact branch's objective and backward solve on the train
+    block: no K1 product, no dw_matvec and no shifted table, and the
+    gradient still reaches the modulator."""
+    feats, rng = _ring_features(n=120, seed=1)
+    idx = torch.from_numpy(rng.choice(120, 30, replace=False))
+    y = torch.from_numpy(rng.normal(size=30).astype(np.float32))
+    probes = torch.from_numpy((rng.integers(0, 2, (4, 30)) * 2 - 1).astype(np.float32))
+    params = {"raw_noise": torch.tensor(-1.0),
+              "modulator": torch.tensor([1.0, 0.5, 0.25], requires_grad=True)}
+    calls = [_counting(monkeypatch, name) for name in ("_product", "dw_matvec", "shifted_weights")]
+    mll = iterative.mll_cg(feats, params, idx, y, probes=probes,
+                           settings=iterative.CGSettings(cg_tol=1e-6, cg_max_iters=100))
+    mll.backward()
+    assert calls == [[], [], []]
     assert bool(torch.isfinite(params["modulator"].grad).all())
     assert bool((params["modulator"].grad != 0).any())
 

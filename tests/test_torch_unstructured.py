@@ -414,6 +414,87 @@ def test_mll_cg_value_and_modulator_gradient_match_jax(pair, layout):
     assert torch.all(p["modulator"].grad != 0)
 
 
+# The train block on the ELL layout against the full-graph products (the
+# forward ELL product and the column-sorted transpose) it replaces in the
+# fits: float32 summation order alone, REL on one product, RTOL through the
+# solves of mll_cg, as test_torch_gp.py's stencil cases.
+
+
+def _ell_slots(n_nodes, masked, seed=0):
+    """Masked: padded slots repeat node 0 with y 0, one observation repeats
+    another. Unmasked: 30 slots with one repeated observation."""
+    if masked:
+        idx, y, mask = _padded_obs(n_nodes, seed=seed)
+        return torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(y), torch.from_numpy(mask)
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(n_nodes, 30, replace=False)
+    idx[5] = idx[3]
+    return torch.from_numpy(idx), torch.from_numpy(_draws(30, seed)), None
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_train_block_gram_matvec_on_ell_equals_full_graph(pair, masked):
+    _, tf = pair
+    assert tf.csc is not None
+    idx, _, mask = _ell_slots(tf.num_nodes, masked)
+    f, nv = torch.from_numpy(F), torch.tensor(0.2)
+    v = torch.from_numpy(_draws((5, idx.numel()), 7))
+    block = tit.build_train_block(tf, idx)
+    got = tit.make_gram_matvec_block()((block.k_tt(f), nv, mask), v)
+    phi = tfeat.contract(tf, f)
+    if masked:
+        ref = tit.make_gram_matvec_bm_masked()((phi, nv, idx, mask), v)
+    else:
+        ref = tit.make_gram_matvec_bm()((phi, nv, idx), v)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_mll_cg_on_the_ell_train_block_equals_full_graph(pair, masked, monkeypatch):
+    _, tf = pair
+    idx, y, mask = _ell_slots(tf.num_nodes, masked, seed=1)
+    probes = torch.from_numpy(np.sign(_draws((8, idx.numel()), 2)))
+    settings = tit.CGSettings(**SETTINGS)
+
+    def run():
+        p = {"raw_noise": torch.tensor(-1.2, requires_grad=True),
+             "modulator": torch.from_numpy(F.copy()).requires_grad_(True)}
+        val = tit.mll_cg(tf, p, idx, y, settings=settings, mask=mask,
+                         num_real=None if mask is None else float(mask.sum()), probes=probes)
+        val.backward()
+        return val.detach(), {k: v.grad for k, v in p.items()}
+
+    assert tit.build_train_block(tf, idx) is not None
+    val, grads = run()
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", 0)
+    ref_val, ref_grads = run()
+    np.testing.assert_allclose(float(val), float(ref_val), rtol=RTOL)
+    for k in grads:
+        np.testing.assert_allclose(grads[k].numpy(), ref_grads[k].numpy(), rtol=RTOL, atol=1e-4)
+    assert torch.all(grads["modulator"] != 0)
+
+
+def test_two_ell_train_block_builds_are_bit_identical(pair):
+    _, tf = pair
+    idx, _, _ = _ell_slots(tf.num_nodes, True)
+    a, b = tit.build_train_block(tf, idx), tit.build_train_block(tf, idx)
+    assert a.gram.shape == (4, idx.numel(), 4, idx.numel())
+    assert torch.equal(a.gram, b.gram)
+
+
+def test_dense_features_take_the_full_graph_path(pair, monkeypatch):
+    jf, _ = pair
+    dense = dense_from_numpy(np.asarray(jfeat.ell_to_dense(jf.mats)))
+    idx, y, mask = _ell_slots(dense.num_nodes, True)
+    assert tit.build_train_block(dense, idx) is None
+    calls = []
+    monkeypatch.setattr(tit, "make_gram_matvec_block", lambda: calls.append(1))
+    tit.mll_cg(dense, {"raw_noise": torch.tensor(-1.2), "modulator": torch.from_numpy(F)}, idx, y,
+               settings=tit.CGSettings(**SETTINGS), mask=mask, num_real=30.0,
+               generator=torch.Generator().manual_seed(0))
+    assert calls == []
+
+
 def test_pathwise_predict_on_ell_matches_jax_given_same_draws(pair):
     jf, tf = pair
     idx, y, mask = _padded_obs(tf.num_nodes, seed=2)
