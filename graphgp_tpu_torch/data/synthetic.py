@@ -6,7 +6,8 @@ graphs from the scaling experiment (reference
 experiments/sparse/scaling_exp/run_scaling_experiment.py:154-198) and the
 five BO surfaces (reference experiments/sparse/scalable_bo/bo_utils/
 data_utils.py:20-262: grid central-bump, periodic torus, staircase, circle,
-grid multimodal). All return
+grid multimodal), and a random geometric graph (the 10th DIMACS
+Implementation Challenge's ``rgg_n_2_*`` construction). All return
 ``{'adjacency': scipy CSR, 'y_true': (N,), 'y_observed': (N,), 'node_ids': (N,)}``.
 """
 from __future__ import annotations
@@ -66,12 +67,51 @@ def generate_grid_data(
     rng = np.random.default_rng(seed)
     x = np.linspace(0, 1, s)
     xg, yg = np.meshgrid(x, x)
-    base = 1.2 * np.sin(2 * np.pi * xg) + 0.6 * np.cos(3 * np.pi * yg)
-    bump = 3 * np.exp(-0.5 * (((xg - 0.5) / 0.06) ** 2 + ((yg - 0.5) / 0.06) ** 2))
-    y_true = (beta_sample * (base + bump)).reshape(-1)
+    y_true = _bump_surface(xg, yg, beta_sample).reshape(-1)
     return _pack(
         _grid_adjacency(s), y_true, y_true + rng.normal(0, noise_std, n_nodes)
     )
+
+
+def _bump_surface(x: np.ndarray, y: np.ndarray, beta_sample: float = 1.0) -> np.ndarray:
+    """The flagship's central-maximum surface at points (x, y) of the unit
+    square (reference data_utils.py:20-75)."""
+    base = 1.2 * np.sin(2 * np.pi * x) + 0.6 * np.cos(3 * np.pi * y)
+    bump = 3 * np.exp(-0.5 * (((x - 0.5) / 0.06) ** 2 + ((y - 0.5) / 0.06) ** 2))
+    return beta_sample * (base + bump)
+
+
+def rgg_radius(n_nodes: int, radius_scale: float = 0.55) -> float:
+    """The DIMACS10 random geometric graph's radius, ``radius_scale ·
+    √(ln n / n)`` (Holtgrewe, Sanders and Schulz, IPDPS 2010)."""
+    return radius_scale * float(np.sqrt(np.log(n_nodes) / n_nodes))
+
+
+def generate_rgg_data(
+    n_nodes: int, radius_scale: float = 0.55, noise_std: float = 0.1, seed: int = 42
+) -> Dict:
+    """Random geometric graph with the flagship's central-bump field.
+
+    ``n_nodes`` points uniform in the unit square, joined by a unit-weight
+    edge when closer than :func:`rgg_radius` (no wrap-around, no self-loops),
+    the construction of DIMACS10's ``rgg_n_2_20_s0`` at n = 2^20. Node ids
+    follow the draw order, so they carry no locality. ``y_true`` is
+    :func:`generate_grid_data`'s surface at each point's (x, y)."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n_nodes, 2))
+    r = rgg_radius(n_nodes, radius_scale)
+    # the tree's own distance test may round otherwise: a slightly wider
+    # query, then the strict test on squared distances
+    pairs = cKDTree(pts).query_pairs(r * (1 + 1e-9), output_type="ndarray")
+    d = pts[pairs[:, 0]] - pts[pairs[:, 1]]
+    pairs = pairs[d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] < r * r]
+    rows = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    cols = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    adj = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n_nodes, n_nodes))
+    y_true = _bump_surface(pts[:, 0], pts[:, 1])
+    return _pack(adj, y_true, y_true + rng.normal(0, noise_std, n_nodes))
 
 
 def generate_periodic_grid_data(
@@ -298,6 +338,7 @@ GENERATORS = {
     "circle": generate_circle_graph_data,
     "grid_multimodal": generate_grid_multimodal_data,
     "pems_like": generate_pems_like_data,
+    "rgg": generate_rgg_data,
 }
 
 

@@ -177,16 +177,20 @@ def make_gram_matvec_bm_full():
     return matvec
 
 
-# The train block's budget in float32 entries: its (L·T, C) train rows and
-# its (L·T)² Gram matrix, for T train slots whose rows reach at most C
-# distinct columns (bounded before the build by min(N, the rows' entries)).
-# 2^28 entries are 1 GiB; the 1000×1000 grid's block at T = 1010 (L 5, ≤ 41
-# offsets a row) takes 0.94 GiB beside its 9 GiB of features, and its Gram
-# product, 2·(L·T)²·C ≈ 2 TFLOP, tens of ms on an H100 in float32, is small
-# beside the thousands of full-graph products of a fit. Over the budget the
-# build's memory and product grow as T² and T³ while the full-graph products
-# need only their vectors: the fit keeps those.
-TRAIN_BLOCK_BUDGET = 1 << 28
+# The train block's budget in bytes of device memory, for what the build
+# allocates once it has counted its pairs of train-row entries that share
+# a column (each a product it forms and sums): at most PAIR_BYTES a pair at
+# once (int64 indices, keys, sort order and the sort's scratch, float32
+# products), and the (L·T)² float32 Gram matrix at most three times (over
+# the distinct nodes, then in the two gathers that expand it to the slots).
+# At T = 1010 and L 5 the matrices take 0.31 GB; the pairs of 910 train
+# nodes are ~0.2 M on the 1000×1000 grid and ~0.6 M on a million-node random
+# geometric graph, and would be ~37 M (2.4 GB) were those nodes packed in
+# one disc (a build of 35.6 M such pairs peaked at 52 B a pair, in its
+# sort, on an H100). Over the budget the fit keeps the full-graph products,
+# which need only their vectors.
+TRAIN_BLOCK_BUDGET = 1 << 32
+PAIR_BYTES = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,27 +213,70 @@ def build_train_block(feats, train_idx: torch.Tensor) -> Optional[TrainBlock]:
     where none applies: a layout other than stencil or ELL, or a block over
     :data:`TRAIN_BLOCK_BUDGET`.
 
-    One gather of the train rows of each step, one sort that compacts their
-    column ids, one scatter of the rows into a dense (L·T, C) matrix and
-    one matrix product. The result does not depend on the order of the
-    scatter's adds, since each entry receives at most one nonzero value
-    (``features.step_rows``), so two builds are bit-identical."""
+    A sparse Gram product over the distinct train nodes, so that padded
+    slots repeating node 0 add no work. The live entries of the train rows
+    (``features.step_rows``) of each node's first slot are sorted by
+    column; every pair of entries that share a column gives a product under
+    the key (row, row); the products are sorted by key and each key's are
+    summed in order by a segment sum. The order of every sum is fixed and
+    no atomics are used, so two builds are bit-identical. Each slot then
+    reads its node's rows. One read from the device, the counts of live
+    entries and of pairs, sizes the pairs before they are made."""
     rows = step_rows(feats, train_idx)
     if rows is None:
         return None
     cols, vals = rows
-    l, t, _ = vals.shape
+    l, t, k = vals.shape
     lt = l * t
-    if lt * min(feats.num_target_nodes, cols.numel()) + lt * lt > TRAIN_BLOCK_BUDGET:
-        return None
+    dev = vals.device
     with profiling.span("gp.train_block"):
-        with profiling.host_sync():  # the count of distinct columns sizes the block
-            ids, inv = torch.unique(cols, return_inverse=True)
-        c = ids.numel()
-        slot = torch.arange(lt, device=vals.device).view(l, t, 1) * c
-        dense = torch.zeros(lt * c, dtype=torch.float32, device=vals.device)
-        dense = dense.index_add(0, (slot + inv).reshape(-1), vals.reshape(-1)).view(lt, c)
-        return TrainBlock((dense @ dense.T).view(l, t, l, t))
+        # each slot's first slot of the same node
+        nodes, order = torch.sort(train_idx.to(device=dev, dtype=torch.int64), stable=True)
+        first_slot = torch.empty_like(order)
+        first_slot[order] = order[torch.searchsorted(nodes, nodes)]
+        live = (vals != 0) & (first_slot == torch.arange(t, device=dev)).view(1, t, 1)
+        # live entries sorted by column, the others after them, sharing none
+        col = torch.where(live, cols.expand(l, t, k), feats.num_target_nodes).reshape(-1)
+        col, order = torch.sort(col, stable=True)
+        row = torch.arange(lt, device=dev).repeat_interleave(k)[order]
+        val = vals.reshape(-1)[order]
+        start = torch.searchsorted(col, col)
+        share = torch.where(col < feats.num_target_nodes,
+                            torch.searchsorted(col, col, right=True) - start, 0)
+        with profiling.host_sync():
+            entries, pairs = torch.stack([(share > 0).sum(), share.sum()]).tolist()
+        profiling.count("train_block.entries", entries)
+        profiling.count("train_block.pairs", pairs)
+        if 12 * lt * lt + PAIR_BYTES * pairs > TRAIN_BLOCK_BUDGET:
+            return None
+        # entry i pairs with each entry of its column, from the column's start;
+        # the pair-long tensors are dropped as soon as they are used
+        i = torch.repeat_interleave(torch.arange(col.numel(), device=dev), share,
+                                    output_size=pairs)
+        j = torch.arange(pairs, device=dev)
+        j += start[i]
+        j -= (torch.cumsum(share, 0) - share)[i]
+        prod = val[i] * val[j]
+        key = row[i] * lt
+        key += row[j]
+        del i, j
+        key, order = torch.sort(key, stable=True)
+        prod = prod[order]
+        del order
+        # each key's products summed in order, as one segment from its first
+        # position; the other positions hold empty segments
+        pos = torch.arange(pairs, device=dev)
+        head = torch.searchsorted(key, key) == pos
+        lengths = torch.searchsorted(key, key, right=True)
+        lengths -= pos
+        del pos
+        lengths.masked_fill_(~head, 0)
+        sums = torch.segment_reduce(prod, "sum", lengths=lengths)
+        del prod, lengths
+        gram = torch.zeros(lt * lt + 1, dtype=torch.float32, device=dev)
+        gram[torch.where(head, key, lt * lt)] = sums  # the empty ones land in a spare entry
+        gram = gram[:-1].view(l, t, l, t)
+        return TrainBlock(gram[:, first_slot][:, :, :, first_slot])
 
 
 def make_gram_matvec_block():

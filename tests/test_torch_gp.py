@@ -20,7 +20,7 @@ from graphgp_tpu.data.synthetic import generate
 from graphgp_tpu.gp import iterative as jit_
 from graphgp_tpu_torch import linalg as tlin
 from graphgp_tpu_torch.convert import params_from_jax, stencil_from_numpy
-from graphgp_tpu_torch.features import StencilFeatures, contract
+from graphgp_tpu_torch.features import StencilFeatures, contract, step_rows
 from graphgp_tpu_torch.gp import iterative as tit
 from graphgp_tpu_torch.gp import params as tparams
 
@@ -357,13 +357,48 @@ def test_two_train_block_builds_are_bit_identical(block_layouts, graph):
     assert torch.equal(a.gram, b.gram)
 
 
+def _dense_gram(feats, idx):
+    """``G[l, a, m, b]`` in float64 from every slot's dense train rows."""
+    cols, vals = step_rows(feats, idx)
+    l, t, k = vals.shape
+    rows = np.zeros((l, t, feats.num_target_nodes))
+    np.add.at(rows, (np.arange(l)[:, None, None], np.arange(t)[None, :, None],
+                     np.broadcast_to(cols.numpy(), (l, t, k))), vals.double().numpy())
+    rows = rows.reshape(l * t, -1)
+    return torch.from_numpy(rows @ rows.T).view(l, t, l, t)
+
+
+@pytest.mark.parametrize("slots", ["padded", "node_0_live", "unmasked"])
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+def test_the_sparse_block_equals_a_float64_dense_gram(block_layouts, graph, slots):
+    """Padded slots at node 0 (and a live observation of node 0 among
+    them), a repeated live node, or no padding: each slot reads its node's
+    rows, whichever slot of the node was built."""
+    feats, y_all = block_layouts[graph]
+    idx, _, _ = _slots(y_all, slots != "unmasked")
+    if slots == "node_0_live":
+        idx[7] = 0
+    got = tit.build_train_block(feats, idx).gram.double()
+    ref = _dense_gram(feats, idx)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def _pairs(feats, idx):
+    """Pairs of live train-row entries of the distinct nodes of ``idx`` that
+    share a column (an entry pairs with itself too), counted on the host."""
+    cols, vals = step_rows(feats, torch.unique(idx))
+    cols = np.broadcast_to(cols.numpy(), vals.shape)[vals.numpy() != 0]
+    return int((np.bincount(cols).astype(np.int64) ** 2).sum())
+
+
 def test_a_block_over_the_budget_takes_the_full_graph_path(block_layouts, monkeypatch):
-    """The budget counts the block's (L·T, C) rows, C bounded by
-    min(N, T·S) on a stencil, and its (L·T)² Gram matrix."""
+    """The budget counts the bytes of the block's (L·T)² Gram matrix, held
+    three times, and of the pairs of train-row entries it sums, which padded
+    slots do not multiply."""
     feats, y_all = block_layouts["grid"]
     idx, y, mask = _slots(y_all, True)
     lt = feats.max_walk_length * idx.numel()
-    need = lt * min(feats.num_nodes, idx.numel() * feats.mats.num_offsets) + lt * lt
+    need = 12 * lt * lt + tit.PAIR_BYTES * _pairs(feats, idx)
     monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need)
     assert tit.build_train_block(feats, idx) is not None
     monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need - 1)

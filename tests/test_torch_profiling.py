@@ -277,6 +277,47 @@ def test_a_fit_counts_its_gram_products_by_path(feats, ell_feats, layout):
     assert profiling.snapshot() == {"spans": [], "counts": {}}
 
 
+@pytest.mark.parametrize("layout", ["stencil", "ell"])
+def test_the_train_block_counts_its_entries_and_pairs_inside_the_fit(feats, ell_feats, layout):
+    """``train_block.entries``: live train-row entries of the distinct train
+    nodes; ``train_block.pairs``: the pairs of them that share a column, the
+    products the block sums. Both land in the fit's span."""
+    from graphgp_tpu_torch.features import step_rows
+
+    f = feats if layout == "stencil" else ell_feats
+    train, _, _ = _problem(f)
+    cols, vals = step_rows(f, train)
+    cols = np.broadcast_to(cols.numpy(), vals.shape)[vals.numpy() != 0]
+    profiling.enable()
+    _fit(f, steps=1)
+    (fit,) = [s for s in profiling.snapshot()["spans"] if s["name"] == "gp.fit"]
+    assert fit["counts"]["train_block.entries"] == cols.size
+    assert fit["counts"]["train_block.pairs"] == int((np.bincount(cols) ** 2).sum())
+
+
+def test_an_rgg_fit_at_the_flagship_capacity_takes_no_full_graph_product():
+    """A random geometric graph's fit at the flagship's observation
+    capacity, 1010 slots of which most are padding at node 0, solves on
+    the train block alone: one build, and ``gram.full_graph`` reads 0."""
+    from graphgp_tpu_torch.data import synthetic
+
+    g = synthetic.generate("rgg", 4096, seed=1)
+    f = preprocess_graph(g["adjacency"], CFG, seed=1, layout="auto", device="cpu")
+    assert isinstance(f, EllFeatures)
+    train = torch.zeros(1010, dtype=torch.int64)
+    train[:110] = torch.arange(0, 4096, 37)[:110]
+    mask = (torch.arange(1010) < 110).to(torch.float32)
+    y = torch.from_numpy(g["y_observed"])[train] * mask
+    profiling.enable()
+    iterative.fit(f, train, y, num_steps=1, settings=SETTINGS, mask=mask, num_real=110.0,
+                  generator=torch.Generator().manual_seed(0))
+    snap = profiling.snapshot()
+    (fit,) = [s for s in snap["spans"] if s["name"] == "gp.fit"]
+    assert fit["counts"]["gram.train_block"] > 0
+    assert fit["counts"].get("gram.full_graph", 0) == 0
+    assert len([s for s in snap["spans"] if s["name"] == "gp.train_block"]) == 1
+
+
 def test_the_feature_build_keeps_its_spans():
     profiling.enable()
     preprocess_graph(_grid(), CFG, seed=1, layout="auto", device="cpu", log_budget_bytes=2000)

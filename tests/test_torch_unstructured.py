@@ -482,6 +482,86 @@ def test_two_ell_train_block_builds_are_bit_identical(pair):
     assert torch.equal(a.gram, b.gram)
 
 
+@pytest.fixture(scope="module")
+def rgg_pair():
+    """A 600-node random geometric graph (the port's generator) as ELL
+    features with their transpose, in both packages."""
+    from graphgp_tpu_torch.data import synthetic
+
+    g = synthetic.generate("rgg", 600, seed=3)["adjacency"]
+    jm = _jax_ell(g, jwalker.WalkConfig(32, 0.1, 4), seed=5)
+    jcsc = jfeat.transpose_ell(jm)
+    tf = ell_features_from_jax(np.asarray(jm.cols), np.asarray(jm.vals), jm.num_target_nodes, jcsc)
+    return jfeat.EllFeatures(jm, jcsc), tf
+
+
+def _dense_gram(feats, idx):
+    """``G[l, a, m, b]`` in float64 from every slot's dense train rows."""
+    cols, vals = tfeat.step_rows(feats, idx)
+    l, t, _ = vals.shape
+    rows = np.zeros((l, t, feats.num_target_nodes))
+    np.add.at(rows, (np.arange(l)[:, None, None], np.arange(t)[None, :, None], cols.numpy()),
+              vals.double().numpy())
+    rows = rows.reshape(l * t, -1)
+    return torch.from_numpy(rows @ rows.T).view(l, t, l, t)
+
+
+@pytest.mark.parametrize("slots", ["padded", "node_0_live", "unmasked"])
+@pytest.mark.parametrize("graph", ["skewed", "rgg"])
+def test_the_sparse_ell_block_equals_a_float64_dense_gram(pair, rgg_pair, graph, slots):
+    """Padded slots at node 0 (and a live observation of node 0 among
+    them), a repeated live node, or no padding."""
+    tf = (pair if graph == "skewed" else rgg_pair)[1]
+    idx, _, _ = _ell_slots(tf.num_nodes, slots != "unmasked")
+    if slots == "node_0_live":
+        idx[7] = 0
+    got = tit.build_train_block(tf, idx).gram.double()
+    ref = _dense_gram(tf, idx)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_two_rgg_train_block_builds_are_bit_identical(rgg_pair):
+    _, tf = rgg_pair
+    idx, _, _ = _ell_slots(tf.num_nodes, True)
+    a, b = tit.build_train_block(tf, idx), tit.build_train_block(tf, idx)
+    assert torch.equal(a.gram, b.gram)
+
+
+def test_mll_cg_on_the_rgg_block_matches_the_full_graph_and_jax(rgg_pair, monkeypatch):
+    jf, tf = rgg_pair
+    idx, y, mask = _padded_obs(tf.num_nodes, seed=4)
+    p0 = {"raw_noise": np.float32(-1.2), "modulator": F.copy()}
+    key = jax.random.PRNGKey(6)
+    js = jit_.CGSettings(**SETTINGS)
+
+    def neg_mll(p):
+        return -jit_.mll_cg(jf, p, jnp.asarray(idx), jnp.asarray(y), key, kind="free",
+                            settings=js, mask=jnp.asarray(mask), num_real=jnp.float32(30))
+
+    val_j, g_j = jax.value_and_grad(neg_mll)({k: jnp.asarray(v) for k, v in p0.items()})
+    probes = torch.from_numpy(np.asarray(jlin.rademacher_probes(key, idx.size,
+                                                                js.num_probes)).T.copy())
+    t_idx = torch.from_numpy(idx.astype(np.int64))
+
+    def run():
+        p = {k: v.requires_grad_(True) for k, v in params_from_jax(p0).items()}
+        val = -tit.mll_cg(tf, p, t_idx, torch.from_numpy(y), settings=tit.CGSettings(**SETTINGS),
+                          mask=torch.from_numpy(mask), num_real=30.0, probes=probes)
+        val.backward()
+        return val.detach(), {k: v.grad for k, v in p.items()}
+
+    assert tit.build_train_block(tf, t_idx) is not None
+    val, grads = run()
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", 0)
+    ref_val, ref_grads = run()
+    for v in (ref_val, val_j):
+        np.testing.assert_allclose(float(val), float(v), rtol=RTOL)
+    for k in p0:
+        for g in (ref_grads[k].numpy(), np.asarray(g_j[k])):
+            np.testing.assert_allclose(grads[k].numpy(), g, rtol=RTOL, atol=1e-4)
+    assert torch.all(grads["modulator"] != 0)
+
+
 def test_dense_features_take_the_full_graph_path(pair, monkeypatch):
     jf, _ = pair
     dense = dense_from_numpy(np.asarray(jfeat.ell_to_dense(jf.mats)))
