@@ -22,8 +22,9 @@ those paths against its plain PyTorch version on the paths' own tensors:
      preprocess_graph(layout="auto"), then run_optimization with
      GRFThompson(kind="free") at batch 100 from 10 initial points; the kernel
      launch counters are zeroed just before and read just after; the fits
-     solve on their train block, so no stencil product is differentiated
-     there and K1 serves the draws;
+     and the draws' residual solves run on a train block, so no stencil
+     product is differentiated there and K1 serves the draws' prior and
+     correction;
   4. a profiled fit of PROFILE_EPOCHS epochs at the final observation set:
      wall and device time per epoch, the device's idle share, top kernels,
      and device ms per epoch of K1, its dw kernel, roll, elementwise ops and

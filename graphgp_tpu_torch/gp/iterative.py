@@ -4,9 +4,10 @@ Counterpart of ``graphgp_tpu/gp/iterative.py``. A fit solves at its train
 slots t with a dense ``K_tt = Φ_t Φ_tᵀ`` formed from a train block
 (:class:`TrainBlock`): Φ is linear in the modulator, ``Φ = Σ_l f_l M_l``,
 so ``K_tt = Σ_{l,m} f_l f_m G_lm`` with ``G_lm = M_l[t,:] M_m[t,:]ᵀ``,
-built once per fit from the train rows of each step matrix. Where no block
-applies (layouts other than stencil and ELL, full-space solves, a block
-over :data:`TRAIN_BLOCK_BUDGET`) and in the draws, the Gram matvec is
+built once per fit from the train rows of each step matrix. A draw's
+compact residual solve builds the block of its own train slots the same
+way. Where no block applies (layouts other than stencil and ELL, full-space
+solves, a block over :data:`TRAIN_BLOCK_BUDGET`), the Gram matvec is
 composed from full-graph Φ products of a contracted operator
 (``features.contract``), so no N×N matrix ever exists:
 
@@ -302,6 +303,19 @@ def make_gram_matvec_block():
     return matvec
 
 
+def _compact_gram(feats, f, noise_var, train_idx, mask, block, phi=None):
+    """The compact solves' ``(matvec, carry)`` at the train slots: the dense
+    ``K_tt`` of ``block`` where there is one, else full-graph products of
+    ``phi`` (``contract(feats, f)`` when not given)."""
+    if block is not None:
+        return make_gram_matvec_block(), (block.k_tt(f), noise_var, mask)
+    if phi is None:
+        phi = contract(feats, f)
+    if mask is None:
+        return make_gram_matvec_bm(), (phi, noise_var, train_idx)
+    return make_gram_matvec_bm_masked(), (phi, noise_var, train_idx, mask)
+
+
 def _fused_gram_solve_bm(phi, noise_var, node_mask, b_solve, settings) -> torch.Tensor:
     """The full-space masked Gram solve through the fused CG
     (``cuda_kernels/gram.gram_cg``, kernel K2 on the card).
@@ -378,15 +392,7 @@ def mll_cg(
     else:
         if train_block is None:
             train_block = build_train_block(feats, train_idx)
-        if train_block is not None:
-            matvec = make_gram_matvec_block()
-            carry = (train_block.k_tt(f), noise_var, mask)
-        elif mask is None:
-            matvec = make_gram_matvec_bm()
-            carry = (contract(feats, f), noise_var, train_idx)
-        else:
-            matvec = make_gram_matvec_bm_masked()
-            carry = (contract(feats, f), noise_var, train_idx, mask)
+        matvec, carry = _compact_gram(feats, f, noise_var, train_idx, mask, train_block)
         y_solve = y
         if probes is None:
             probes = rademacher_probes(n, settings.num_probes, generator, dev)
@@ -422,7 +428,10 @@ def pathwise_predict(
     with prior paths Φ ε₁ and one batched CG solve for all paths.
     ``eps1`` (num_samples, N) and ``eps2`` (num_samples, n_train) are the
     standard-normal draws (ε₂ is scaled by the noise std here); by default
-    they come from ``generator``.
+    they come from ``generator``. The prior and the correction
+    ``K*,t v = (Φ Φᵀ expand(v))[test]`` are full-graph products; the
+    compact residual solve runs on the train block of ``train_idx`` where
+    one applies (:func:`build_train_block`), else on full-graph products.
 
     ``full_space=True``: the residual solve runs in the full node space,
     on a stencil layout through the fused masked-Gram CG (kernel K2): no
@@ -437,7 +446,6 @@ def pathwise_predict(
         with profiling.span("gp.predict.prior"):
             f = P.modulator(kind, params, feats.max_walk_length)
             phi = contract(feats, f)
-            n = feats.num_nodes
             nt = feats.num_target_nodes
             noise_var = P.noise_variance(params)
             if eps1 is None:
@@ -453,15 +461,22 @@ def pathwise_predict(
                 # padded residuals are zeroed, so their solution components stay 0
                 b = b * mask[None, :]
         with profiling.span("gp.predict.solve"):
-            v_full = _predict_solve(phi, noise_var, train_idx, b, n, mask, full_space, settings)
+            v_full = _predict_solve(feats, phi, f, noise_var, train_idx, b, mask, full_space,
+                                    settings)
         with profiling.span("gp.predict.correction"):
             correction = phi.matvec_bm(phi.rmatvec_bm(v_full))[:, test_idx]
             return f_test_prior + correction
 
 
-def _predict_solve(phi, noise_var, train_idx, b, n, mask, full_space, settings):
-    """``pathwise_predict``'s residual solve, scattered to the full node space."""
+def _predict_solve(feats, phi, f, noise_var, train_idx, b, mask, full_space, settings):
+    """``pathwise_predict``'s residual solve, scattered to the full node space.
+
+    The compact solve runs on the dense ``K_tt`` of the draw's own train
+    block, from the modulator f of ``phi = contract(feats, f)``, where
+    :func:`build_train_block` gives one; else, as the full-space solves
+    always, on full-graph Φ products."""
     dev = b.device
+    n = feats.num_nodes
     if full_space and isinstance(phi, ContractedStencil):
         live = mask if mask is not None else torch.ones(train_idx.shape[0], device=dev)
         return _fused_gram_solve_bm(
@@ -476,12 +491,8 @@ def _predict_solve(phi, noise_var, train_idx, b, n, mask, full_space, settings):
             make_gram_matvec_bm_full(), carry, _expand_add(b, train_idx, n),
             tol=settings.cg_tol, max_iters=settings.cg_max_iters,
         ).x
-    if mask is None:
-        matvec = make_gram_matvec_bm()
-        carry = (phi, noise_var, train_idx)
-    else:
-        matvec = make_gram_matvec_bm_masked()
-        carry = (phi, noise_var, train_idx, mask)
+    matvec, carry = _compact_gram(feats, f, noise_var, train_idx, mask,
+                                  build_train_block(feats, train_idx), phi)
     v = batched_cg(matvec, carry, b, tol=settings.cg_tol, max_iters=settings.cg_max_iters).x
     return _expand_add(v, train_idx, n)
 

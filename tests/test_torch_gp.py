@@ -408,3 +408,107 @@ def test_a_block_over_the_budget_takes_the_full_graph_path(block_layouts, monkey
     tit.mll_cg(feats, params_from_jax(_params()), idx, y, settings=tit.CGSettings(**SETTINGS),
                mask=mask, num_real=30.0, generator=torch.Generator().manual_seed(0))
     assert calls == []
+
+
+
+# ---------------------------------------------------------------------------
+# The draws' compact residual solve on the train block against the same draw
+# on full-graph products (the budget at 0 refuses every block): the same ε,
+# the same operator up to float32 summation order inside K_tt. At the cells'
+# tolerance (1e-2) CG stops while float32 rounding still steers its iterates
+# (the two solutions differ by ~2e-4 of their largest entry), and the
+# correction K*,t amplifies that, so the samples are compared at 1e-6, where
+# the solves have converged; at both tolerances each solve is held to its
+# true float64 residual, as the benchmark's draw_drift check holds it.
+# ---------------------------------------------------------------------------
+
+
+def _recorded_draw(feats, idx, y, mask, tol=1e-2):
+    """A pathwise draw at every node under fixed ε; the recorder's counts
+    inside its ``gp.predict`` span; and its solve, ``(b, CGResult)``."""
+    from graphgp_tpu_torch.utils import profiling
+
+    eps1 = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(4, feats.num_target_nodes)).astype(np.float32))
+    eps2 = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(4, idx.numel())).astype(np.float32))
+    solves, original = [], tit.batched_cg
+
+    def captured(matvec, carry, b, **kwargs):
+        out = original(matvec, carry, b, **kwargs)
+        solves.append((b, out))
+        return out
+
+    tit.batched_cg = captured
+    profiling.reset()
+    profiling.enable()
+    try:
+        out = tit.pathwise_predict(
+            feats, params_from_jax(_params(2)), idx, y, torch.arange(feats.num_nodes),
+            num_samples=4, settings=tit.CGSettings(cg_tol=tol, cg_max_iters=300), mask=mask,
+            eps1=eps1, eps2=eps2)
+        (predict,) = [s for s in profiling.snapshot()["spans"] if s["name"] == "gp.predict"]
+    finally:
+        tit.batched_cg = original
+        profiling.disable()
+        profiling.reset()
+    (solve,) = solves
+    return out, predict["counts"], solve
+
+
+def _true_residual(feats, idx, mask, solve):
+    """‖b − Ã x‖ / ‖b‖ of a draw's compact solve in float64, Ã the masked
+    operator from every slot's dense train rows (repeated slots add up)."""
+    from graphgp_tpu_torch.gp import params as tparams
+
+    b, res = solve
+    p = params_from_jax(_params(2))
+    f = tparams.modulator("free", p, feats.max_walk_length).double()
+    k = torch.einsum("l,lamb,m->ab", f, _dense_gram(feats, idx), f)
+    m = torch.ones(idx.numel(), dtype=torch.float64) if mask is None else mask.double()
+    a = m[:, None] * k * m[None, :] + torch.diag(
+        float(tparams.noise_variance(p)) * m + (1 - m))
+    b = b.double()
+    return torch.linalg.vector_norm(b - res.x.double() @ a, dim=-1) / \
+        torch.linalg.vector_norm(b, dim=-1)
+
+
+@pytest.mark.parametrize("tol", [1e-2, 1e-6])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+def test_a_draw_on_the_train_block_equals_the_full_graph_draw(block_layouts, graph, masked, tol,
+                                                             monkeypatch):
+    """Padded slots at node 0 and a repeated train node (masked), or a
+    repeated node alone: the two solves take the same CG iterations, or one
+    more or less, each reports its true residual, and converged draws agree
+    within 1e-5 of the largest sample."""
+    feats, y_all = block_layouts[graph]
+    idx, y, mask = _slots(y_all, masked, seed=2)
+    got, on_block, block_solve = _recorded_draw(feats, idx, y, mask, tol)
+    assert on_block["gram.train_block"] > 0 and "gram.full_graph" not in on_block
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", 0)
+    ref, on_graph, graph_solve = _recorded_draw(feats, idx, y, mask, tol)
+    assert on_graph["gram.full_graph"] > 0 and "gram.train_block" not in on_graph
+    assert abs(on_block["cg.iterations"] - on_graph["cg.iterations"]) <= 1
+    for solve in (block_solve, graph_solve):
+        drift = _true_residual(feats, idx, mask, solve) - solve[1].residual_norm.double()
+        assert float(drift.abs().max()) <= 1e-5
+    if tol <= 1e-6:
+        _rel_close(got, ref)
+
+
+@pytest.mark.parametrize("spare", [0, -1], ids=["at_the_budget", "over_the_budget"])
+def test_a_draw_over_the_budget_takes_the_full_graph_path(block_layouts, spare, monkeypatch):
+    """The draw's block is held to the fits' budget: one byte over it and
+    every Gram product of the draw's solve is a full-graph one."""
+    feats, y_all = block_layouts["grid"]
+    idx, y, mask = _slots(y_all, True)
+    lt = feats.max_walk_length * idx.numel()
+    need = 12 * lt * lt + tit.PAIR_BYTES * _pairs(feats, idx)
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need + spare)
+    _, counts, _ = _recorded_draw(feats, idx, y, mask)
+    products = counts["cg.iterations"] + counts["cg.solves"]
+    if spare == 0:
+        assert counts["gram.train_block"] == products and "gram.full_graph" not in counts
+    else:
+        assert counts["gram.full_graph"] == products and "gram.train_block" not in counts

@@ -198,9 +198,10 @@ def test_fit_and_predict_keep_the_span_tree(feats):
     # probe solves in the backward pass; the draw's residual solve
     assert tree["cg"] == {"gp.mll", "gp.backward", "gp.predict.solve"}
     assert tree["lanczos"] == {"gp.mll"}
-    # the solvers' flag reads, and the train block's count of its columns
+    # the solvers' flag reads, and the train blocks' counts of their columns
     assert tree["sync"] == {"cg", "gp.train_block"}
-    assert tree["gp.train_block"] == {"gp.fit"}
+    # the fit's block, and the draw's own for its residual solve
+    assert tree["gp.train_block"] == {"gp.fit", "gp.predict.solve"}
     for child in ("gp.predict.prior", "gp.predict.solve", "gp.predict.correction"):
         assert tree[child] == {"gp.predict"}
 
@@ -275,6 +276,29 @@ def test_a_fit_counts_its_gram_products_by_path(feats, ell_feats, layout):
     profiling.reset()
     run()
     assert profiling.snapshot() == {"spans": [], "counts": {}}
+
+
+@pytest.mark.parametrize("layout", ["stencil", "ell"])
+def test_a_compact_draw_takes_its_gram_products_from_its_own_train_block(feats, ell_feats,
+                                                                         layout):
+    """A masked compact draw on the stencil and ELL layouts builds one train
+    block, under ``gp.predict.solve``, and every Gram product of its
+    residual solve comes from it: the first residual and each iteration.
+    The prior and the correction are Φ products, no Gram products."""
+    f = feats if layout == "stencil" else ell_feats
+    params = _fit(f, steps=1).params
+    profiling.enable()
+    _predict(f, params)
+    snap = profiling.snapshot()
+    (predict,) = [s for s in snap["spans"] if s["name"] == "gp.predict"]
+    (solve,) = [s for s in snap["spans"] if s["name"] == "gp.predict.solve"]
+    c = predict["counts"]
+    assert c["cg.solves"] == 1
+    assert c["gram.train_block"] == c["cg.iterations"] + c["cg.solves"]
+    assert "gram.full_graph" not in c
+    blocks = [s for s in snap["spans"] if s["name"] == "gp.train_block"]
+    assert len(blocks) == 1 and blocks[0]["parent"] == solve["id"]
+    assert snap["counts"]["gram.train_block"] == c["gram.train_block"]
 
 
 @pytest.mark.parametrize("layout", ["stencil", "ell"])

@@ -575,6 +575,97 @@ def test_dense_features_take_the_full_graph_path(pair, monkeypatch):
     assert calls == []
 
 
+
+# The draws' compact residual solve on the ELL train block against the same
+# draw on the forward ELL and column-sorted transposed products (the budget
+# at 0 refuses every block), as test_torch_gp.py's stencil cases: the same
+# CG iterations or one apart, each solve at its true float64 residual, and
+# converged draws within REL of the largest sample.
+
+P_DRAW = {"raw_noise": np.float32(-1.2), "modulator": F}
+
+
+def _recorded_draw(feats, idx, y, mask, tol=1e-2):
+    """A pathwise draw at every node under fixed ε; the recorder's counts
+    inside its ``gp.predict`` span; and its solve, ``(b, CGResult)``."""
+    from graphgp_tpu_torch.utils import profiling
+
+    eps1 = torch.from_numpy(_draws((4, feats.num_target_nodes), 5))
+    eps2 = torch.from_numpy(_draws((4, idx.numel()), 6))
+    solves, original = [], tit.batched_cg
+
+    def captured(matvec, carry, b, **kwargs):
+        out = original(matvec, carry, b, **kwargs)
+        solves.append((b, out))
+        return out
+
+    tit.batched_cg = captured
+    profiling.reset()
+    profiling.enable()
+    try:
+        out = tit.pathwise_predict(
+            feats, params_from_jax(P_DRAW), idx, y, torch.arange(feats.num_nodes),
+            num_samples=4, settings=tit.CGSettings(cg_tol=tol, cg_max_iters=300), mask=mask,
+            eps1=eps1, eps2=eps2)
+        (predict,) = [s for s in profiling.snapshot()["spans"] if s["name"] == "gp.predict"]
+    finally:
+        tit.batched_cg = original
+        profiling.disable()
+        profiling.reset()
+    (solve,) = solves
+    return out, predict["counts"], solve
+
+
+def _true_residual(feats, idx, mask, solve):
+    """‖b − Ã x‖ / ‖b‖ of a draw's compact solve in float64, Ã the masked
+    operator from every slot's dense train rows (repeated slots add up)."""
+    from graphgp_tpu_torch.gp import params as tparams
+
+    b, res = solve
+    p = params_from_jax(P_DRAW)
+    f = tparams.modulator("free", p, feats.max_walk_length).double()
+    k = torch.einsum("l,lamb,m->ab", f, _dense_gram(feats, idx), f)
+    m = torch.ones(idx.numel(), dtype=torch.float64) if mask is None else mask.double()
+    a = m[:, None] * k * m[None, :] + torch.diag(
+        float(tparams.noise_variance(p)) * m + (1 - m))
+    b = b.double()
+    return torch.linalg.vector_norm(b - res.x.double() @ a, dim=-1) / \
+        torch.linalg.vector_norm(b, dim=-1)
+
+
+@pytest.mark.parametrize("tol", [1e-2, 1e-6])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("graph", ["skewed", "rgg"])
+def test_a_draw_on_the_ell_train_block_equals_the_full_graph_draw(pair, rgg_pair, graph, masked,
+                                                                 tol, monkeypatch):
+    """Padded slots at node 0 and a repeated train node (masked), or a
+    repeated node alone, on the star-and-ER graph and a random geometric
+    graph."""
+    tf = (pair if graph == "skewed" else rgg_pair)[1]
+    idx, y, mask = _ell_slots(tf.num_nodes, masked, seed=2)
+    got, on_block, block_solve = _recorded_draw(tf, idx, y, mask, tol)
+    assert on_block["gram.train_block"] > 0 and "gram.full_graph" not in on_block
+    monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", 0)
+    ref, on_graph, graph_solve = _recorded_draw(tf, idx, y, mask, tol)
+    assert on_graph["gram.full_graph"] > 0 and "gram.train_block" not in on_graph
+    assert abs(on_block["cg.iterations"] - on_graph["cg.iterations"]) <= 1
+    for solve in (block_solve, graph_solve):
+        drift = _true_residual(tf, idx, mask, solve) - solve[1].residual_norm.double()
+        assert float(drift.abs().max()) <= 1e-5
+    if tol <= 1e-6:
+        _close(got, ref)
+
+
+def test_a_dense_layout_draw_takes_the_full_graph_path(pair):
+    """Dense features have no train rows to build a block from: every Gram
+    product of the draw's solve is a full-graph one."""
+    jf, _ = pair
+    dense = dense_from_numpy(np.asarray(jfeat.ell_to_dense(jf.mats)))
+    idx, y, mask = _ell_slots(dense.num_nodes, True)
+    _, counts, _ = _recorded_draw(dense, idx, y, mask)
+    assert counts["gram.full_graph"] == counts["cg.iterations"] + counts["cg.solves"]
+    assert "gram.train_block" not in counts
+
 def test_pathwise_predict_on_ell_matches_jax_given_same_draws(pair):
     jf, tf = pair
     idx, y, mask = _padded_obs(tf.num_nodes, seed=2)
