@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import manifest as mf
+from .host import Beside
 from .probes import Probes
 
 # Top-level module names the program's process must never load.
@@ -141,11 +142,13 @@ def run(workload_name: str, seed: int, seconds: float, traced: bool, *, device: 
     cell.probes.span_ns.clear()
     cell.probes.counters.clear()
     prof = _profile(cell) if traced else contextlib.nullcontext()
-    t0 = time.perf_counter()
-    with prof, cell.probes.span("window"):
-        units = loop.window(cell, seconds)
-        cell.sync()
-    window_s = time.perf_counter() - t0
+    with Beside() as beside:
+        t0 = time.perf_counter()
+        with prof, cell.probes.span("window"):
+            units = loop.window(cell, seconds)
+            cell.sync()
+        window_s = time.perf_counter() - t0
+    print(beside.describe(), file=sys.stderr)
 
     metrics = {}
     if not traced:

@@ -7,8 +7,7 @@ of a fit has the same shapes). The window is made of whole passes over the
 traffic's ``bo_seeds``, one BO run each, in an order drawn from ``--seed``,
 so that every seed times the same work (runs of different BO seeds differ
 in work); it ends at the end of the first pass at or after ``--seconds``.
-The mix's list is sized so that one pass lasts a little longer than the
-benchmark's ``run_seconds``. A run is the configuration's ``iterations`` of
+A run is the configuration's ``iterations`` of
 ``select → evaluate → update`` at the traffic's ``batch_size``. ``--seed``
 also draws the positions the check reads.
 
