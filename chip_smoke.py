@@ -2253,7 +2253,8 @@ def multi_device_path(device) -> None:
         f"all-reduces")
     check(same, "multi-device: the sharded walk differs from sample_walk_log")
     check(rel <= REL_TOL_MULTI_CG, f"multi-device: distributed CG rel {rel}")
-    check(reduces == 2 * (MULTI_CG_ITERS + 1), f"multi-device: {reduces} all-reduces")
+    # one matvec an iteration (none at the zero start), two all-reduces each
+    check(reduces == 2 * MULTI_CG_ITERS, f"multi-device: {reduces} all-reduces")
     del walked, plain, feats
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as results_dir:

@@ -11,6 +11,9 @@ kernels:
   ``out = mask ⊙ (Φ t) + σ²·mask ⊙ v + (1 − mask) ⊙ v`` and the per-row dot
   ``⟨v, out⟩``, the CG denominator.
 
+The solve is ``linalg``'s CG loop, the one every solve of the package runs,
+on that operator.
+
 Counterpart of ``graphgp_tpu/pallas_kernels/gram.py`` (``_rmv_mask``,
 ``_mv_epilogue``, ``_gram_cg_padded``, ``gram_cg``); the CUDA kernels are
 ``csrc/gram.cu``, whose header says what bounds them and why the padded
@@ -25,10 +28,11 @@ versions. There is no gradient: these are prediction solves.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
+from ..linalg import CGResult, _batched_cg_rows
 from ..utils import profiling
 from . import _build
 from .stencil import MAX_BATCH, MAX_OFFSETS, _device_plan, center_offsets, matvec_plain
@@ -36,12 +40,6 @@ from .stencil import MAX_BATCH, MAX_OFFSETS, _device_plan, center_offsets, matve
 # Kernel launches since the last reset; chip_smoke.py reads them.
 rmv_mask_launches = 0
 mv_epilogue_launches = 0
-
-
-class GramCGResult(NamedTuple):
-    x: torch.Tensor  # (B, N) full-space solution (zero off the mask when b is)
-    iterations: int
-    residual_norm: torch.Tensor  # (B,) relative residuals
 
 
 def rmv_mask_plain(
@@ -148,49 +146,26 @@ def mv_epilogue_cuda(
     return out, partials.sum(dim=1)
 
 
-def _cg(
-    matvec: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
-    b_rhs: torch.Tensor, tol: float, max_iters: int,
-) -> GramCGResult:
-    """The CG loop of the JAX package's ``_gram_cg_padded``, step for step:
-    ``x0 = 0``, ``r = b``, a system is active while ``rz > tol²·max(‖b‖², 1e-30)``,
-    frozen systems take ``alpha = 0``, divisions are guarded, and the loop ends
-    when no system is active or after ``max_iters``. ``matvec`` returns
-    ``(A p, ⟨p, A p⟩)``. The convergence test reads one flag on the host, one
-    synchronize per iteration."""
+def _plain_gram(operands, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One application of the plain K2a and K2b → ``(A v, ⟨v, A v⟩)``."""
+    w, w_shift, offs, neg, nv, mask = operands
+    return mv_epilogue_plain(w, rmv_mask_plain(w_shift, mask, v, neg), mask, v, nv, offs)
+
+
+def _cuda_gram(operands, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K2a and one K2b launch → ``(A v, ⟨v, A v⟩)``."""
+    w, w_shift, offs, neg, nv, mask = operands
+    return mv_epilogue_cuda(w, rmv_mask_cuda(w_shift, mask, v, neg), mask, v, nv, offs)
+
+
+def _solve(matvec, operands, b_rhs: torch.Tensor, tol, max_iters) -> CGResult:
+    """``linalg``'s CG loop from ``x = 0`` on a K2 operator, whose dot is the
+    step's denominator. It stays out of ``batched_cg``'s ``cg`` span and
+    count: these solves are counted under ``gram_cg``."""
     with profiling.span("gram_cg"):
-        res = _cg_rows(matvec, b_rhs, tol, max_iters)
+        res = _batched_cg_rows(matvec, operands, b_rhs, float(tol), int(max_iters), None, None)
         profiling.count("cg.iterations", res.iterations)
     return res
-
-
-def _cg_rows(matvec, b_rhs, tol, max_iters) -> GramCGResult:
-    x = torch.zeros_like(b_rhs)
-    r = b_rhs.clone()
-    p = r.clone()
-    rz = (r * r).sum(dim=1)
-    b_norm2 = torch.clamp(rz, min=1e-30)
-    threshold = (tol * tol) * b_norm2
-    it = 0
-    while it < max_iters:
-        active = rz > threshold
-        with profiling.host_sync():
-            converged = not bool(active.any())
-        if converged:
-            break
-        ap, denom = matvec(p)
-        alpha = torch.where(denom != 0, rz / torch.where(denom != 0, denom, 1.0), 0.0)
-        alpha = torch.where(active, alpha, 0.0)
-        # x and r are this function's own buffers: updated in place
-        x.addcmul_(alpha[:, None], p)
-        r.addcmul_(alpha[:, None], ap, value=-1.0)
-        rz_new = (r * r).sum(dim=1)
-        beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        p = torch.addcmul(r, beta[:, None], p)
-        rz = rz_new
-        it += 1
-    res = torch.sqrt(torch.clamp(rz, min=0.0) / b_norm2)
-    return GramCGResult(x, it, res)
 
 
 def _operands(phi, noise_var, mask, b_rhs):
@@ -207,39 +182,36 @@ def _operands(phi, noise_var, mask, b_rhs):
             f"gram_cg: b_rhs must be (B ≤ {MAX_BATCH}, N), got {tuple(b_rhs.shape)}; "
             "solve larger batches in chunks (the systems are independent)"
         )
-    return w, w_shift, offs, neg, nv, mask, b_rhs
+    return (w, w_shift, offs, neg, nv, mask), b_rhs
 
 
 @torch.no_grad()
 def gram_cg_plain(
     phi, noise_var, mask: torch.Tensor, b_rhs: torch.Tensor, *,
-    tol: float = 1e-2, max_iters: int = 100, periodic: bool = True,
-) -> GramCGResult:
+    tol: float = 1e-2, max_iters: int = 100,
+) -> CGResult:
     """:func:`gram_cg` over the plain versions of K2a and K2b, on any device."""
-    w, w_shift, offs, neg, nv, mask, b_rhs = _operands(phi, noise_var, mask, b_rhs)
-
-    def matvec(v):
-        return mv_epilogue_plain(w, rmv_mask_plain(w_shift, mask, v, neg), mask, v, nv, offs)
-
-    return _cg(matvec, b_rhs, float(tol), int(max_iters))
+    operands, b_rhs = _operands(phi, noise_var, mask, b_rhs)
+    return _solve(_plain_gram, operands, b_rhs, tol, max_iters)
 
 
 @torch.no_grad()
 def gram_cg(
     phi, noise_var, mask: torch.Tensor, b_rhs: torch.Tensor, *,
-    tol: float = 1e-2, max_iters: int = 100, periodic: bool = True,
-) -> GramCGResult:
+    tol: float = 1e-2, max_iters: int = 100,
+) -> CGResult:
     """Solve ``(M K M + σ²M + (I−M)) x = b`` for a ContractedStencil Φ.
 
     phi: ``features.ContractedStencil``. noise_var: σ² as a float or a 0-d
     tensor (kept on the device). mask: 0/1 float32 (N,). b_rhs: (B ≤ 16, N)
     batch-major full-space right-hand sides, zero off the mask (the identity
-    block keeps whatever ``b`` holds there).
+    block keeps whatever ``b`` holds there). Returns ``linalg.CGResult``:
+    x (B, N), the iterations, and the relative residuals (B,).
 
-    ``periodic`` is kept for the reader of the JAX signature and changes
-    nothing: the TPU kernels need it to decide whether to mirror edge columns
-    into their pads, while these kernels index ``(i ± off) mod N`` directly,
-    which is exact for periodic and aperiodic stencils alike.
+    The JAX signature's ``periodic`` has no counterpart: the TPU kernels need
+    it to decide whether to mirror edge columns into their pads, while these
+    kernels index ``(i ± off) mod N`` directly, which is exact for periodic
+    and aperiodic stencils alike.
 
     On CUDA tensors every operator application is one K2a and one K2b launch
     (a failed build or launch raises); CPU tensors take :func:`gram_cg_plain`.
@@ -247,9 +219,5 @@ def gram_cg(
     """
     if not b_rhs.is_cuda:
         return gram_cg_plain(phi, noise_var, mask, b_rhs, tol=tol, max_iters=max_iters)
-    w, w_shift, offs, neg, nv, mask, b_rhs = _operands(phi, noise_var, mask, b_rhs)
-
-    def matvec(v):
-        return mv_epilogue_cuda(w, rmv_mask_cuda(w_shift, mask, v, neg), mask, v, nv, offs)
-
-    return _cg(matvec, b_rhs, float(tol), int(max_iters))
+    operands, b_rhs = _operands(phi, noise_var, mask, b_rhs)
+    return _solve(_cuda_gram, operands, b_rhs, tol, max_iters)

@@ -76,10 +76,24 @@ def _expand_bm(v: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def _masked_gram(k, v: torch.Tensor, noise_var, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``M K M V + σ² M V + (I − M) V`` for batch-major V (B, n) and the 0/1
+    mask M, or ``K V + σ² V`` when the mask is None; ``k(V)`` applies K to
+    rows, and a 1-D v is one row. The masked operator is block-diagonal: the
+    masked-off dims of a padded observation buffer are independent
+    unit-variance Gaussians (0 in the quadratic, log 1 = 0 in the logdet)."""
+    if v.dim() == 1:
+        return _masked_gram(k, v[None, :], noise_var, mask)[0]
+    if mask is None:
+        return k(v) + noise_var * v
+    vm = v * mask[None, :]
+    return k(vm) * mask[None, :] + noise_var * vm + (v - vm)
+
+
 # The uncontracted Gram matvecs: the carry is (params, feats, train_idx) and
 # the modulator is formed from the parameters at every product, as the JAX
 # package's make_ktt_matvec* do. The solver paths of this module contract the
-# features once per solve instead (make_gram_matvec_bm*).
+# features once per solve instead (make_gram_matvec_bm, make_gram_matvec_bm_full).
 
 
 def make_ktt_matvec(kind: str):
@@ -112,52 +126,36 @@ def make_ktt_matvec_bm(kind: str):
 
 def make_ktt_matvec_bm_masked(kind: str):
     """Masked batch-major Gram matvec for padded observation buffers,
-    ``Ã = M A M + (I − M)`` (see :func:`make_gram_matvec_bm_masked`).
-    carry = (params, feats, train_idx, mask)."""
+    ``M (K_tt + σ²I) M + (I − M)``. carry = (params, feats, train_idx, mask)."""
 
     def matvec(carry, v):
-        if v.dim() == 1:
-            return matvec(carry, v[None, :])[0]
         params, feats, train_idx, mask = carry
-        vm = v * mask[None, :]
         f = P.modulator(kind, params, feats.max_walk_length)
-        u = feats.rmatvec_bm(f, _expand_add(vm, train_idx, feats.num_nodes))
-        kv = feats.matvec_bm(f, u)[:, train_idx] * mask[None, :]
-        return kv + P.noise_variance(params) * vm + (v - vm)
+
+        def k(rows):
+            u = feats.rmatvec_bm(f, _expand_add(rows, train_idx, feats.num_nodes))
+            return feats.matvec_bm(f, u)[:, train_idx]
+
+        return _masked_gram(k, v, P.noise_variance(params), mask)
 
     return matvec
 
 
 def make_gram_matvec_bm():
-    """Batch-major ``(K_tt + σ²I) V`` over a contracted Φ.
-    carry = (phi, noise_var, train_idx)."""
+    """Batch-major Gram matvec at the train slots over a contracted Φ:
+    ``M K_tt M V + σ² M V + (I − M) V`` for the 0/1 slot mask M of a padded
+    fixed-capacity observation buffer, or ``K_tt V + σ² V`` when the mask is
+    None. carry = (phi, noise_var, train_idx, mask)."""
 
     def matvec(carry, v):
-        if v.dim() == 1:
-            return matvec(carry, v[None, :])[0]
-        profiling.count("gram.full_graph")
-        phi, noise_var, train_idx = carry
-        u = phi.rmatvec_bm(_expand_add(v, train_idx, phi.num_nodes))
-        return phi.matvec_bm(u)[:, train_idx] + noise_var * v
-
-    return matvec
-
-
-def make_gram_matvec_bm_masked():
-    """Masked variant for padded fixed-capacity observation buffers:
-    ``Ã = M A M + (I − M)``, block-diagonal, so padded dims are independent
-    unit-variance Gaussians (0 in the quadratic, log 1 = 0 in the logdet).
-    carry = (phi, noise_var, train_idx, mask)."""
-
-    def matvec(carry, v):
-        if v.dim() == 1:
-            return matvec(carry, v[None, :])[0]
         profiling.count("gram.full_graph")
         phi, noise_var, train_idx, mask = carry
-        vm = v * mask[None, :]
-        expanded = _expand_add(vm, train_idx, phi.num_nodes)
-        kv = phi.matvec_bm(phi.rmatvec_bm(expanded))[:, train_idx] * mask[None, :]
-        return kv + noise_var * vm + (v - vm)
+
+        def k(rows):
+            u = phi.rmatvec_bm(_expand_add(rows, train_idx, phi.num_nodes))
+            return phi.matvec_bm(u)[:, train_idx]
+
+        return _masked_gram(k, v, noise_var, mask)
 
     return matvec
 
@@ -167,13 +165,9 @@ def make_gram_matvec_bm_full():
     0/1 node mask of train nodes. carry = (phi, noise_var, node_mask)."""
 
     def matvec(carry, v):
-        if v.dim() == 1:
-            return matvec(carry, v[None, :])[0]
         profiling.count("gram.full_graph")
         phi, noise_var, node_mask = carry
-        vm = v * node_mask[None, :]
-        kv = phi.matvec_bm(phi.rmatvec_bm(vm)) * node_mask[None, :]
-        return kv + noise_var * vm + (v - vm)
+        return _masked_gram(lambda u: phi.matvec_bm(phi.rmatvec_bm(u)), v, noise_var, node_mask)
 
     return matvec
 
@@ -291,14 +285,9 @@ def make_gram_matvec_block():
     nothing to a real observation of its node."""
 
     def matvec(carry, v):
-        if v.dim() == 1:
-            return matvec(carry, v[None, :])[0]
         profiling.count("gram.train_block")
         k_tt, noise_var, mask = carry
-        if mask is None:
-            return v @ k_tt + noise_var * v
-        vm = v * mask[None, :]
-        return (vm @ k_tt) * mask[None, :] + noise_var * vm + (v - vm)
+        return _masked_gram(lambda u: u @ k_tt, v, noise_var, mask)
 
     return matvec
 
@@ -311,9 +300,7 @@ def _compact_gram(feats, f, noise_var, train_idx, mask, block, phi=None):
         return make_gram_matvec_block(), (block.k_tt(f), noise_var, mask)
     if phi is None:
         phi = contract(feats, f)
-    if mask is None:
-        return make_gram_matvec_bm(), (phi, noise_var, train_idx)
-    return make_gram_matvec_bm_masked(), (phi, noise_var, train_idx, mask)
+    return make_gram_matvec_bm(), (phi, noise_var, train_idx, mask)
 
 
 def _fused_gram_solve_bm(phi, noise_var, node_mask, b_solve, settings) -> torch.Tensor:
@@ -328,7 +315,7 @@ def _fused_gram_solve_bm(phi, noise_var, node_mask, b_solve, settings) -> torch.
     outs = [
         gram.gram_cg(
             phi, noise_var, node_mask, b_solve[i : i + gram.MAX_BATCH],
-            tol=settings.cg_tol, max_iters=settings.cg_max_iters, periodic=True,
+            tol=settings.cg_tol, max_iters=settings.cg_max_iters,
         ).x
         for i in range(0, b_solve.shape[0], gram.MAX_BATCH)
     ]

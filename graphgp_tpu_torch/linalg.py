@@ -58,10 +58,13 @@ def batched_cg(
     layout), or column-major (N, B) with ``batch_axis=1`` (the JAX package's
     default). ``matvec(carry, v)`` and ``precond(carry, r)`` (which applies
     M⁻¹) take v in b's layout; a single vector reaches them as one row
-    (1, N), or as one column (N, 1) with ``batch_axis=1``. Systems whose
-    relative residual ‖r‖/‖b‖ is at or below ``tol`` are frozen (step size 0)
-    while the others go on; the loop ends when all have converged or after
-    ``max_iters`` iterations.
+    (1, N), or as one column (N, 1) with ``batch_axis=1``. ``matvec`` may
+    return ``(A p, ⟨p, A p⟩)``, the per-row dot it formed itself, which the
+    loop then takes as its step's denominator. Without ``x0`` the loop starts
+    at ``x = 0``, ``r = b``, and applies the operator once an iteration.
+    Systems whose relative residual ‖r‖/‖b‖ is at or below ``tol`` are frozen
+    (step size 0) while the others go on; the loop ends when all have
+    converged or after ``max_iters`` iterations.
     """
     if batch_axis == 1:
         res = batched_cg(
@@ -83,8 +86,11 @@ def _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond) -> CGResult:
     if single:
         b = b[None, :]
         x0 = None if x0 is None else x0[None, :]
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - matvec(carry, x)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        ax = matvec(carry, x0)
+        x, r = x0, b - (ax[0] if isinstance(ax, tuple) else ax)
     z = r if precond is None else precond(carry, r)
     p = z
     rz = (r * z).sum(dim=-1)
@@ -103,7 +109,10 @@ def _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond) -> CGResult:
         if converged:
             break
         ap = matvec(carry, p)
-        denom = (p * ap).sum(dim=-1)
+        if isinstance(ap, tuple):
+            ap, denom = ap
+        else:
+            denom = (p * ap).sum(dim=-1)
         alpha = torch.where(denom != 0, rz / torch.where(denom != 0, denom, 1.0), 0.0)
         alpha = torch.where(active, alpha, 0.0)
         x = x + alpha[:, None] * p

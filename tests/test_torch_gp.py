@@ -315,11 +315,30 @@ def test_train_block_gram_matvec_equals_full_graph(block_layouts, graph, masked)
     block = tit.build_train_block(feats, idx)
     got = tit.make_gram_matvec_block()((block.k_tt(f), nv, mask), v)
     phi = contract(feats, f)
-    if masked:
-        ref = tit.make_gram_matvec_bm_masked()((phi, nv, idx, mask), v)
-    else:
-        ref = tit.make_gram_matvec_bm()((phi, nv, idx), v)
+    ref = tit.make_gram_matvec_bm()((phi, nv, idx, mask), v)
     _rel_close(got, ref)
+
+
+@pytest.mark.parametrize("builder", ["block", "full_graph"])
+def test_a_mask_of_ones_gives_the_unmasked_operator(block_layouts, builder):
+    """The masked Gram form under a mask of ones is the unmasked one, bit
+    for bit: ``M v`` is v and ``(I − M) v`` adds zeros."""
+    feats, y_all = block_layouts["grid"]
+    idx, _, _ = _slots(y_all, False)
+    f = torch.from_numpy(_params()["modulator"])
+    nv = torch.tensor(0.2)
+    v = torch.from_numpy(np.random.default_rng(4).normal(size=(5, idx.numel())).astype(np.float32))
+    ones = torch.ones(idx.numel())
+    if builder == "block":
+        matvec = tit.make_gram_matvec_block()
+        head = (tit.build_train_block(feats, idx).k_tt(f), nv)
+    else:
+        matvec = tit.make_gram_matvec_bm()
+        head = (contract(feats, f), nv, idx)
+    got = matvec((*head, ones), v)
+    assert torch.equal(got, matvec((*head, None), v))
+    # a 1-D v is one row
+    assert torch.equal(matvec((*head, ones), v[0]), matvec((*head, ones), v[:1])[0])
 
 
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
@@ -500,14 +519,15 @@ def test_a_draw_on_the_train_block_equals_the_full_graph_draw(block_layouts, gra
 @pytest.mark.parametrize("spare", [0, -1], ids=["at_the_budget", "over_the_budget"])
 def test_a_draw_over_the_budget_takes_the_full_graph_path(block_layouts, spare, monkeypatch):
     """The draw's block is held to the fits' budget: one byte over it and
-    every Gram product of the draw's solve is a full-graph one."""
+    every Gram product of the draw's solve is a full-graph one: one an
+    iteration, none at the solve's zero start."""
     feats, y_all = block_layouts["grid"]
     idx, y, mask = _slots(y_all, True)
     lt = feats.max_walk_length * idx.numel()
     need = 12 * lt * lt + tit.PAIR_BYTES * _pairs(feats, idx)
     monkeypatch.setattr(tit, "TRAIN_BLOCK_BUDGET", need + spare)
     _, counts, _ = _recorded_draw(feats, idx, y, mask)
-    products = counts["cg.iterations"] + counts["cg.solves"]
+    products = counts["cg.iterations"]
     if spare == 0:
         assert counts["gram.train_block"] == products and "gram.full_graph" not in counts
     else:

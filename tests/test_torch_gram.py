@@ -22,6 +22,7 @@ from graphgp_tpu import walker as jwalker
 from graphgp_tpu.gp import iterative as jit_
 from graphgp_tpu.pallas_kernels import gram as jgram
 from graphgp_tpu.pallas_kernels import stencil as jps
+from graphgp_tpu_torch import linalg as tlin
 from graphgp_tpu_torch.convert import params_from_jax, stencil_from_numpy
 from graphgp_tpu_torch.cuda_kernels import gram as tgram
 from graphgp_tpu_torch.features import StencilFeatures, contract
@@ -94,12 +95,32 @@ def test_gram_cg_plain_matches_jax_gram_cg(problem):
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), atol=2e-4)
     np.testing.assert_allclose(got.residual_norm.numpy(), np.asarray(ref.residual_norm),
                                rtol=1e-2, atol=1e-6)
-    # the dispatcher takes the plain version for CPU tensors, and the
-    # periodic flag of the JAX signature changes nothing here
-    for periodic in (True, False):
-        again = tgram.gram_cg(p["tphi"], float(NOISE), torch.from_numpy(p["mask"]),
-                              torch.from_numpy(p["b"]), tol=0.0, max_iters=25, periodic=periodic)
-        assert torch.equal(again.x, got.x)
+    # the dispatcher takes the plain version for CPU tensors
+    again = tgram.gram_cg(p["tphi"], float(NOISE), torch.from_numpy(p["mask"]),
+                          torch.from_numpy(p["b"]), tol=0.0, max_iters=25)
+    assert torch.equal(again.x, got.x)
+
+
+def test_gram_cg_is_the_linalg_loop_on_the_k2_operator(problem):
+    """``gram_cg_plain`` is ``linalg``'s CG loop on the plain K2a → K2b
+    operator, whose dot is the step's denominator: the same bits, the same
+    iterations."""
+    p = problem
+    tphi, offs = p["tphi"], p["offs"]
+    mask_t, b = torch.from_numpy(p["mask"]), torch.from_numpy(p["b"])
+    neg = tuple(-o for o in offs)
+    nv = torch.tensor([NOISE], dtype=torch.float32)
+
+    def k2(_, v):
+        t = tgram.rmv_mask_plain(tphi.w_shift, mask_t, v, neg)
+        return tgram.mv_epilogue_plain(tphi.w, t, mask_t, v, nv, offs)
+
+    got = tgram.gram_cg_plain(tphi, torch.tensor(NOISE), mask_t, b, tol=1e-3, max_iters=100)
+    ref = tlin.batched_cg(k2, None, b, tol=1e-3, max_iters=100)
+    assert isinstance(got, tlin.CGResult)
+    assert 0 < got.iterations < 100 and got.iterations == ref.iterations
+    assert torch.equal(got.x, ref.x)
+    assert torch.equal(got.residual_norm, ref.residual_norm)
 
 
 @pytest.mark.parametrize("tol", [1e-1, 1e-3])

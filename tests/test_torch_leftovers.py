@@ -195,6 +195,49 @@ def test_column_major_cg_matches_jax(gram_problem, precond):
     assert _rel(rows.x.T.numpy(), got.x.numpy()) <= 1e-4
 
 
+def _rows_problem(g):
+    """The batch-major Gram operator of the dense features, its carry and
+    right-hand sides (B, n_train)."""
+    carry = (g["tparams"], g["tdense"], torch.from_numpy(g["tr"].astype(np.int64)))
+    b = torch.from_numpy(np.ascontiguousarray(g["b"].T))
+    return iterative.make_ktt_matvec_bm("diffusion"), carry, b
+
+
+def test_an_operator_that_returns_its_dot_solves_to_the_same_bits(gram_problem):
+    """An operator may return ``(A p, ⟨p, A p⟩)``; the loop takes that dot
+    as its denominator, and a dot formed as the loop forms it gives the
+    loop's own bits."""
+    matvec, carry, b = _rows_problem(gram_problem)
+
+    def with_dot(c, p):
+        ap = matvec(c, p)
+        return ap, (p * ap).sum(-1)
+
+    with torch.no_grad():
+        ref = linalg.batched_cg(matvec, carry, b, tol=1e-5, max_iters=200)
+        got = linalg.batched_cg(with_dot, carry, b, tol=1e-5, max_iters=200)
+    assert 0 < ref.iterations < 200 and got.iterations == ref.iterations
+    assert torch.equal(got.x, ref.x) and torch.equal(got.residual_norm, ref.residual_norm)
+
+
+@pytest.mark.parametrize("start", ["zero", "x0"])
+def test_a_solve_applies_its_operator_once_an_iteration(gram_problem, start):
+    """Without ``x0`` the loop starts at r = b and applies the operator once
+    an iteration; with one it applies it once more, for ``b − A x0``."""
+    matvec, carry, b = _rows_problem(gram_problem)
+    calls = []
+
+    def counted(c, p):
+        calls.append(1)
+        return matvec(c, p)
+
+    x0 = torch.full_like(b, 0.1) if start == "x0" else None
+    with torch.no_grad():
+        res = linalg.batched_cg(counted, carry, b, tol=1e-5, max_iters=200, x0=x0)
+    assert res.iterations > 0
+    assert len(calls) == res.iterations + (x0 is not None)
+
+
 def test_column_major_lanczos_matches_jax(gram_problem):
     g = gram_problem
     tr = g["tr"]

@@ -231,10 +231,10 @@ def test_distributed_gram_solve_matches_jax(ranks, solve_inputs, world, name):
 @pytest.mark.parametrize("world", [2, 4])
 def test_distributed_gram_solve_two_all_reduces_per_matvec(ranks, world):
     """tol 0, 20 iterations (of a 32-row system, so none reaches a zero
-    residual and stops): 21 matvecs (the initial residual's and one an
-    iteration), two all-reduces each."""
+    residual and stops): 20 matvecs (one an iteration; none at the solve's
+    zero start), two all-reduces each."""
     for out in ranks[world]:
-        assert out["all_reduces_20_iterations"] == 2 * 21
+        assert out["all_reduces_20_iterations"] == 2 * 20
 
 
 def test_distributed_gram_solve_matches_single_device_cg(solve_inputs):
