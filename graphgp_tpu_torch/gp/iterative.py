@@ -30,7 +30,7 @@ import torch
 
 from ..cuda_kernels import gram
 from ..features import ContractedStencil, contract, step_rows
-from ..linalg import batched_cg, cg_solve, rademacher_probes, slq_logdet
+from ..linalg import batched_cg, capturable, cg_solve, rademacher_probes, slq_logdet
 from ..utils import profiling
 from . import params as P
 
@@ -274,6 +274,13 @@ def build_train_block(feats, train_idx: torch.Tensor) -> Optional[TrainBlock]:
         return TrainBlock(gram[:, first_slot][:, :, :, first_slot])
 
 
+@capturable
+def _block_gram(carry, v):
+    profiling.count("gram.train_block")
+    k_tt, noise_var, mask = carry
+    return _masked_gram(lambda u: u @ k_tt, v, noise_var, mask)
+
+
 def make_gram_matvec_block():
     """Batch-major Gram matvec on the train block's dense ``K_tt``:
     ``M K M V + σ² M V + (I − M) V`` for the 0/1 slot mask M, or
@@ -282,14 +289,10 @@ def make_gram_matvec_block():
     A slot that repeats a node repeats its row of K, so repeated
     observations add up as the full-graph product's scatter-add does; a
     padded slot's entry of V is masked to 0 before the product, so it adds
-    nothing to a real observation of its node."""
-
-    def matvec(carry, v):
-        profiling.count("gram.train_block")
-        k_tt, noise_var, mask = carry
-        return _masked_gram(lambda u: u @ k_tt, v, noise_var, mask)
-
-    return matvec
+    nothing to a real observation of its node. The product is a fixed chain
+    of launches with no host read, so on a card ``batched_cg`` runs its
+    solves as CUDA graphs (``linalg.capturable``)."""
+    return _block_gram
 
 
 def _compact_gram(feats, f, noise_var, train_idx, mask, block, phi=None):

@@ -16,6 +16,7 @@ tensors in the carry without differentiating through the iterations:
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -65,6 +66,11 @@ def batched_cg(
     Systems whose relative residual ‖r‖/‖b‖ is at or below ``tol`` are frozen
     (step size 0) while the others go on; the loop ends when all have
     converged or after ``max_iters`` iterations.
+
+    On a card, with no preconditioner, no input that needs a gradient and an
+    operator that declares itself :func:`capturable`, the loop runs as a
+    CUDA graph of :data:`GRAPH_CHUNK` iterations with one host read a
+    replay (:func:`_chunked_cg_rows`); the result is the same bits.
     """
     if batch_axis == 1:
         res = batched_cg(
@@ -75,59 +81,240 @@ def batched_cg(
             return CGResult(res.x[0], res.iterations, res.residual_norm[0])
         return CGResult(res.x.T, res.iterations, res.residual_norm)
     with profiling.span("cg"):
-        res = _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond)
+        if _graphable(matvec, carry, b, x0, precond):
+            res = _chunked_cg_rows(matvec, carry, b, tol, max_iters, x0, GRAPH_CHUNK,
+                                   graphed=True)
+            profiling.count("cg.graph_solves")
+        else:
+            res = _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond)
         profiling.count("cg.iterations", res.iterations)
         profiling.count("cg.solves")
     return res
 
 
-def _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond) -> CGResult:
-    single = b.dim() == 1
-    if single:
-        b = b[None, :]
-        x0 = None if x0 is None else x0[None, :]
+class _CGState(NamedTuple):
+    """The loop's carry: iterate, residual, direction, ⟨r, z⟩ and ‖r‖² (rows)."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    rr: torch.Tensor
+
+
+def _cg_start(matvec, carry, b, x0, precond) -> Tuple[_CGState, torch.Tensor]:
+    """The state at ``x0`` (x = 0, r = b without one, and no product) and ‖b‖."""
     if x0 is None:
         x, r = torch.zeros_like(b), b
     else:
         ax = matvec(carry, x0)
         x, r = x0, b - (ax[0] if isinstance(ax, tuple) else ax)
     z = r if precond is None else precond(carry, r)
-    p = z
     rz = (r * z).sum(dim=-1)
     # ‖r‖², the convergence test's: rz itself without a preconditioner
     rr = rz if precond is None else (r * r).sum(dim=-1)
     b_norm = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1e-30)
+    return _CGState(x, r, z, rz, rr), b_norm
 
-    def residual(sq):
-        return torch.sqrt(torch.clamp(sq, min=0.0)) / b_norm
 
+def _residual(rr, b_norm):
+    return torch.sqrt(torch.clamp(rr, min=0.0)) / b_norm
+
+
+def _cg_step(matvec, carry, s: _CGState, active, precond) -> _CGState:
+    """One iteration; rows not ``active`` take step size 0, so their x and r
+    stay the same bits."""
+    ap = matvec(carry, s.p)
+    if isinstance(ap, tuple):
+        ap, denom = ap
+    else:
+        denom = (s.p * ap).sum(dim=-1)
+    alpha = torch.where(denom != 0, s.rz / torch.where(denom != 0, denom, 1.0), 0.0)
+    alpha = torch.where(active, alpha, 0.0)
+    x = s.x + alpha[:, None] * s.p
+    r = s.r - alpha[:, None] * ap
+    z = r if precond is None else precond(carry, r)
+    rz = (r * z).sum(dim=-1)
+    rr = rz if precond is None else (r * r).sum(dim=-1)
+    beta = torch.where(s.rz != 0, rz / torch.where(s.rz != 0, s.rz, 1.0), 0.0)
+    return _CGState(x, r, z + beta[:, None] * s.p, rz, rr)
+
+
+def _rows_result(x, iterations, res, single) -> CGResult:
+    return CGResult(x[0], iterations, res[0]) if single else CGResult(x, iterations, res)
+
+
+def _batched_cg_rows(matvec, carry, b, tol, max_iters, x0, precond) -> CGResult:
+    """The loop with one host read of the convergence flag an iteration."""
+    single = b.dim() == 1
+    if single:
+        b = b[None, :]
+        x0 = None if x0 is None else x0[None, :]
+    s, b_norm = _cg_start(matvec, carry, b, x0, precond)
     it = 0
     while it < max_iters:
-        active = residual(rr) > tol
+        active = _residual(s.rr, b_norm) > tol
         with profiling.host_sync():
             converged = not bool(active.any())
         if converged:
             break
-        ap = matvec(carry, p)
-        if isinstance(ap, tuple):
-            ap, denom = ap
-        else:
-            denom = (p * ap).sum(dim=-1)
-        alpha = torch.where(denom != 0, rz / torch.where(denom != 0, denom, 1.0), 0.0)
-        alpha = torch.where(active, alpha, 0.0)
-        x = x + alpha[:, None] * p
-        r = r - alpha[:, None] * ap
-        z = r if precond is None else precond(carry, r)
-        rz_new = (r * z).sum(dim=-1)
-        rr = rz_new if precond is None else (r * r).sum(dim=-1)
-        beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        p = z + beta[:, None] * p
-        rz = rz_new
+        s = _cg_step(matvec, carry, s, active, precond)
         it += 1
-    res = residual(rr)
+    return _rows_result(s.x, it, _residual(s.rr, b_norm), single)
+
+
+# ---------------------------------------------------------------------------
+# The loop in chunks of k iterations, one host read a chunk; on a card each
+# chunk is a replay of one CUDA graph.
+# ---------------------------------------------------------------------------
+
+# iterations a replay: the rgg's solves take ~60, the grid's ~4
+GRAPH_CHUNK = 8
+_GRAPHS_KEPT = 16
+
+
+def capturable(matvec: Matvec) -> Matvec:
+    """Declare that ``matvec``'s product is a fixed chain of launches with no
+    host read, so that :func:`batched_cg` may replay it from a CUDA graph.
+    The function is kept as the graph's key: declare a module-level one."""
+    matvec.capturable = True
+    return matvec
+
+
+def _graphable(matvec, carry, b, x0, precond) -> bool:
+    if precond is not None or not b.is_cuda or not getattr(matvec, "capturable", False):
+        return False
+    if _carry_key(carry) is None:
+        return False
+    if torch.is_grad_enabled():
+        inputs = [b, x0] + [t for t in carry if isinstance(t, torch.Tensor)]
+        return not any(t is not None and t.requires_grad for t in inputs)
+    return True
+
+
+def _carry_key(carry):
+    """Shapes and dtypes of a carry of tensors, Nones and Python numbers
+    (which a graph holds as constants), or None for any other carry."""
+    key = []
+    for item in carry:
+        if isinstance(item, torch.Tensor):
+            key.append((tuple(item.shape), item.dtype, item.device))
+        elif item is None or isinstance(item, (bool, int, float)):
+            key.append(item)
+        else:
+            return None
+    return tuple(key)
+
+
+def _cg_chunk(matvec, carry, s: _CGState, iters, b_norm, k, tol, max_iters):
+    """k iterations with no host read and no preconditioner. ``iters`` (an
+    int64 scalar) counts the iterations in which some row was live: its
+    residual above ``tol`` and fewer than ``max_iters`` iterations run. A
+    row that is not live takes α = 0, so its x and r stay the same bits and
+    it stays not live; once no row is live the rest of the chunk changes
+    neither, and x, the residual and ``iters`` are those of the loop that
+    stops there. Returns the state, ``iters`` and ``[any row live, iters]``."""
+    for _ in range(k):
+        active = (_residual(s.rr, b_norm) > tol) & (iters < max_iters)
+        s = _cg_step(matvec, carry, s, active, None)
+        iters = iters + active.any()
+    live = ((_residual(s.rr, b_norm) > tol) & (iters < max_iters)).any()
+    return s, iters, torch.stack([live.to(torch.int64), iters])
+
+
+def _chunked_cg_rows(matvec, carry, b, tol, max_iters, x0, k, graphed=False) -> CGResult:
+    """The loop (no preconditioner) in chunks of k iterations, with one host
+    read of ``[any row live, iterations]`` a chunk: the one-iteration loop's
+    x, residual and iterations, bit for bit. ``graphed``: each chunk is a
+    replay of a CUDA graph (:class:`_ChunkGraph`)."""
+    single = b.dim() == 1
     if single:
-        return CGResult(x[0], it, res[0])
-    return CGResult(x, it, res)
+        b = b[None, :]
+        x0 = None if x0 is None else x0[None, :]
+    s, b_norm = _cg_start(matvec, carry, b, x0, None)
+    iters = torch.zeros((), dtype=torch.int64, device=b.device)
+    if graphed:
+        graph = _ChunkGraph.get(matvec, carry, s, iters, b_norm, k, tol, max_iters)
+        graph.load(carry, s, iters, b_norm)
+        run = graph.replay
+    else:
+        def run():
+            nonlocal s, iters
+            s, iters, status = _cg_chunk(matvec, carry, s, iters, b_norm, k, tol, max_iters)
+            return status
+    live = True
+    while live:
+        status = run()
+        with profiling.host_sync():
+            live, n = status.tolist()
+    if graphed:
+        s = graph.state()
+    return _rows_result(s.x, n, _residual(s.rr, b_norm), single)
+
+
+class _ChunkGraph:
+    """:func:`_cg_chunk` captured as one CUDA graph on static copies of the
+    carry's tensors, the state, the iteration count and ‖b‖, which a replay
+    advances in place. One is kept per (operator, carry shapes, b's shape and
+    dtype, tol, max_iters, k), the last :data:`_GRAPHS_KEPT` of them."""
+
+    _kept: "OrderedDict[tuple, _ChunkGraph]" = OrderedDict()
+
+    @classmethod
+    def get(cls, matvec, carry, s, iters, b_norm, k, tol, max_iters) -> "_ChunkGraph":
+        key = (matvec, _carry_key(carry), tuple(s.x.shape), s.x.dtype, tol, max_iters, k)
+        graph = cls._kept.pop(key, None)
+        if graph is None:
+            graph = cls(matvec, carry, s, iters, b_norm, k, tol, max_iters)
+            profiling.count("cg.graph_captures")
+        cls._kept[key] = graph
+        while len(cls._kept) > _GRAPHS_KEPT:
+            cls._kept.popitem(last=False)
+        return graph
+
+    def __init__(self, matvec, carry, s, iters, b_norm, k, tol, max_iters):
+        leaves, rebuild = _flatten(carry)
+        self._leaves = [t.detach().clone() for t in leaves]
+        self._state = _CGState(*(t.detach().clone() for t in s))
+        self._iters = iters.clone()
+        self._b_norm = b_norm.detach().clone()
+        static = rebuild(self._leaves)
+
+        def body():
+            out, n, status = _cg_chunk(matvec, static, self._state, self._iters, self._b_norm,
+                                       k, tol, max_iters)
+            for dst, src in zip(self._state + (self._iters,), out + (n,)):
+                dst.copy_(src)
+            return status
+
+        with torch.no_grad():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            # warm-up launches outside the capture; its counts are dropped
+            with torch.cuda.stream(side), profiling.tally():
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            # the backward pass's solves run on autograd's own thread
+            with profiling.tally() as self._counts, torch.cuda.graph(
+                    self._graph, capture_error_mode="thread_local"):
+                self._status = body()
+
+    def load(self, carry, s, iters, b_norm) -> None:
+        leaves, _ = _flatten(carry)
+        for dst, src in zip(self._leaves + list(self._state) + [self._iters, self._b_norm],
+                            leaves + list(s) + [iters, b_norm]):
+            dst.copy_(src)
+
+    def replay(self) -> torch.Tensor:
+        """One chunk; the operator's own counts of k products are added."""
+        self._graph.replay()
+        for name, n in self._counts.items():
+            profiling.count(name, n)
+        return self._status
+
+    def state(self) -> _CGState:
+        return _CGState(*(t.clone() for t in self._state))
 
 
 # ---------------------------------------------------------------------------

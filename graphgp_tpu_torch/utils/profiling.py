@@ -48,6 +48,7 @@ _spans: List[tuple] = []        # (id, parent id, name, start_ns, end_ns, counts
 _totals: Dict[str, int] = defaultdict(int)
 _next_id = itertools.count()
 _lent: List["Span"] = []        # open spans that other threads nest in
+_tallies = 0                    # threads inside tally() now
 
 
 def enable() -> None:
@@ -148,10 +149,14 @@ class Span:
         return (self.end_ns - self.start_ns) * 1e-9
 
 
+def _tally() -> Optional[Dict[str, int]]:
+    return getattr(_local, "tally", None) if _tallies else None
+
+
 def span(name: str, lend: bool = False):
     """A span named ``name`` around a block, kept while the recorder is on;
     with ``lend``, threads with no open span of their own nest in it."""
-    if not _on:
+    if not _on or _tally() is not None:
         return _OFF
     return Span(name, True, lend)
 
@@ -168,12 +173,37 @@ def timed(name: str, needed: bool = True):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` (a host number, never a tensor) to the counter ``name``, in
-    the innermost open span of this thread (or the lent one)."""
+    the innermost open span of this thread (or the lent one); inside
+    :func:`tally`, to its dict."""
+    into = _tally()
+    if into is not None:
+        into[name] = into.get(name, 0) + n
+        return
     if not _on:
         return
     with _lock:
         _totals[name] += n
         _add(_top(), ((name, n),))
+
+
+@contextlib.contextmanager
+def tally():
+    """Counts made on this thread inside the block go to the dict it yields,
+    whether the recorder is on or off, and not into the record; the thread's
+    spans there are not kept. For work captured once and replayed (a CUDA
+    graph): add the dict's counts with :func:`count` at every replay."""
+    global _tallies
+    outer = getattr(_local, "tally", None)
+    counts: Dict[str, int] = {}
+    _local.tally = counts
+    with _lock:
+        _tallies += 1
+    try:
+        yield counts
+    finally:
+        _local.tally = outer
+        with _lock:
+            _tallies -= 1
 
 
 def host_sync():

@@ -569,3 +569,136 @@ def test_k4_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="walks_per_node"):
         k4.sample_dense_step_matrices_cuda(g, 0, WalkConfig(walks_per_node=0))
     assert k4.sample_dense_step_matrices_cuda(g, 0, WalkConfig(max_walk_length=0)).shape == (0, 32, 32)
+
+
+# ---------------------------------------------------------------------------
+# The CG loop on the train block as CUDA graphs of linalg.GRAPH_CHUNK
+# iterations: the one-iteration loop's bits, one host read a replay; the
+# other operators keep the one-iteration loop.
+# ---------------------------------------------------------------------------
+
+
+def _compact_fit_problem(device, layout="auto"):
+    """A 20×20 grid's features, 30 observations padded to 48 slots with one
+    repeated, and fixed probes for three Adam steps."""
+    from graphgp_tpu_torch.preprocessor import preprocess_graph
+
+    data = synthetic.generate("grid", 400, seed=0)
+    feats = preprocess_graph(data["adjacency"], WalkConfig(64, 0.1, 3), seed=1, layout=layout,
+                             device=device)
+    rng = np.random.default_rng(0)
+    idx = np.zeros(48, np.int64)
+    idx[:30] = rng.choice(400, 30, replace=False)
+    idx[5] = idx[3]
+    mask = (np.arange(48) < 30).astype(np.float32)
+    y = np.where(mask > 0, data["y_observed"][idx], 0.0).astype(np.float32)
+    probes = torch.from_numpy(rng.choice([-1.0, 1.0], size=(3, 4, 48)).astype(np.float32))
+    return feats, *(torch.from_numpy(a).to(device) for a in (idx, y, mask)), probes.to(device)
+
+
+def _fit_counts(feats, idx, y, mask, probes):
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        res = iterative.fit(
+            feats, idx, y, mask=mask, num_steps=3, probes=probes,
+            init={"raw_noise": torch.tensor(-1.5, device=idx.device),
+                  "modulator": torch.tensor([1.0, 0.5, -0.3], device=idx.device)},
+            settings=iterative.CGSettings(cg_tol=1e-2, cg_max_iters=100, num_probes=4,
+                                          num_lanczos_iters=5))
+        torch.cuda.synchronize()
+        return res, profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+@pytest.mark.gpu
+def test_block_solves_run_as_cuda_graphs_with_the_eager_bits(cuda, monkeypatch):
+    """A compact fit's solves (forward, and the adjoint and probe solves on
+    autograd's thread) all replay CUDA graphs and give the fit of the
+    one-iteration loop bit for bit; single solves on its block give that
+    loop's x, residual and iterations and read the host at most once a
+    replay and once more."""
+    from graphgp_tpu_torch import linalg
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.utils import profiling
+
+    feats, idx, y, mask, probes = _compact_fit_problem(cuda)
+    graphed, counts = _fit_counts(feats, idx, y, mask, probes)
+    assert counts["cg.graph_solves"] == counts["cg.solves"] == 9
+    assert 1 <= counts["cg.graph_captures"] <= 2  # B = 1 and the probes' B = 4
+    with monkeypatch.context() as m:
+        m.setattr(linalg, "_graphable", lambda *a: False)
+        eager, eager_counts = _fit_counts(feats, idx, y, mask, probes)
+    assert "cg.graph_solves" not in eager_counts
+    assert eager_counts["cg.iterations"] == counts["cg.iterations"]
+    assert counts["host.syncs"] < eager_counts["host.syncs"]
+    assert torch.equal(graphed.losses, eager.losses)
+    for name in eager.params:
+        assert torch.equal(graphed.params[name], eager.params[name])
+
+    block = iterative.build_train_block(feats, idx)
+    f = torch.tensor([1.0, 0.5, -0.3], device=cuda)
+    matvec = iterative.make_gram_matvec_block()
+    rng = np.random.default_rng(1)
+    for carry_mask, rows in ((mask, 1), (mask, 4), (None, 4), (mask, 16)):
+        carry = (block.k_tt(f), torch.tensor(0.2, device=cuda), carry_mask)
+        b = torch.from_numpy(rng.normal(size=(rows, 48)).astype(np.float32)).to(cuda)
+        b = b[0] if rows == 1 else b
+        ref = linalg._batched_cg_rows(matvec, carry, b, 1e-4, 100, None, None)
+        profiling.reset()
+        profiling.enable()
+        try:
+            got = linalg.batched_cg(matvec, carry, b, tol=1e-4, max_iters=100)
+            c = profiling.snapshot()["counts"]
+        finally:
+            profiling.disable()
+            profiling.reset()
+        assert c["cg.graph_solves"] == c["cg.solves"] == 1
+        assert got.iterations == ref.iterations > linalg.GRAPH_CHUNK
+        assert torch.equal(got.x, ref.x) and torch.equal(got.residual_norm, ref.residual_norm)
+        assert c["host.syncs"] <= -(-ref.iterations // linalg.GRAPH_CHUNK) + 1
+        # a replay runs, and counts, a chunk's products
+        assert c["gram.train_block"] == linalg.GRAPH_CHUNK * c["host.syncs"]
+
+
+@pytest.mark.gpu
+def test_k2_and_full_graph_solves_keep_the_one_iteration_loop(cuda):
+    """K2's fused solve and the full-graph ELL Gram operator read the host
+    every iteration as before: no CUDA graph."""
+    from graphgp_tpu_torch.features import contract
+    from graphgp_tpu_torch.gp import iterative
+    from graphgp_tpu_torch.utils import profiling
+
+    feats, idx, y, mask, _ = _compact_fit_problem(cuda, layout="ell")
+    phi = contract(feats, torch.tensor([1.0, 0.5, -0.3], device=cuda))
+    n = 4099
+    w, _, offs, _, k2_mask, v = _gram_inputs(n, 8, 7, seed=3, device=cuda)
+
+    class Phi:
+        pass
+
+    stencil = Phi()
+    stencil.w, stencil.w_shift, stencil.offsets = 0.3 * w, k1.shifted_weights(0.3 * w, offs), \
+        np.asarray(offs)
+    profiling.reset()
+    profiling.enable()
+    try:
+        full = iterative.batched_cg(iterative.make_gram_matvec_bm(),
+                                    (phi, torch.tensor(0.2, device=cuda), idx, mask),
+                                    y[None, :].repeat(4, 1), tol=1e-4, max_iters=100)
+        fused = k2.gram_cg(stencil, 0.5, k2_mask, v * k2_mask[None, :], tol=1e-4, max_iters=20)
+        c = profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert "cg.graph_solves" not in c and "cg.graph_captures" not in c
+    assert c["cg.solves"] == 1
+    assert c["cg.iterations"] == full.iterations + fused.iterations
+    # one read an iteration, and one more where a solve converged before its cap
+    assert c["host.syncs"] == sum(r.iterations + (r.iterations < cap)
+                                  for r, cap in ((full, 100), (fused, 20)))

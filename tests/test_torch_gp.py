@@ -64,6 +64,65 @@ def test_batched_cg_matches_jax_and_freezes_converged():
     assert bool((out.residual_norm <= 1e-6).all())
 
 
+def _block_problem(masked, t=40, seed=0):
+    """The train block's operator on a random K_tt (σ² 0.05) and five rows:
+    zero (no live iteration), one and three eigenvectors of the operator
+    (live for about that many iterations) and two random rows."""
+    rng = np.random.default_rng(seed)
+    m = (rng.normal(size=(t, t)) / np.sqrt(t)).astype(np.float32)
+    mask = torch.from_numpy((rng.random(t) < 0.8).astype(np.float32)) if masked else None
+    carry = (torch.from_numpy(m @ m.T), torch.tensor(0.05), mask)
+    matvec = tit.make_gram_matvec_block()
+    a = matvec(carry, torch.eye(t)).double()
+    _, q = torch.linalg.eigh((a + a.T) / 2)
+    w = torch.from_numpy(rng.normal(size=(3, 5))).double()
+    b = torch.zeros((5, t), dtype=torch.float64)
+    b[1] = q[:, -1]
+    b[2] = q[:, -3:] @ w[0, :3]
+    b[3:] = torch.from_numpy(rng.normal(size=(2, t)))
+    return matvec, carry, b.float()
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("case", ["converge", "max_iters", "x0", "one_row"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_cg_in_chunks_is_the_one_iteration_loop_bit_for_bit(masked, case, k):
+    """The loop in chunks of k iterations with one host read a chunk (a CUDA
+    graph's replay on a card) gives the one-iteration loop's x, residual and
+    iterations, bit for bit, and reads the host at most once a chunk and
+    once more: rows frozen at other iterations, a solve cut at max_iters 10
+    (k 3 does not divide it), a start at x0 and a single vector."""
+    from graphgp_tpu_torch.utils import profiling
+
+    matvec, carry, b = _block_problem(masked)
+    tol, max_iters, x0 = 1e-4, 200, None
+    if case == "max_iters":
+        tol, max_iters = 1e-7, 10
+    elif case == "x0":
+        x0 = 0.1 * torch.ones_like(b)
+    elif case == "one_row":
+        b = b[3]
+    ref = tlin._batched_cg_rows(matvec, carry, b, tol, max_iters, x0, None)
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = tlin._chunked_cg_rows(matvec, carry, b, tol, max_iters, x0, k)
+        syncs = profiling.snapshot()["counts"]["host.syncs"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert got.iterations == ref.iterations
+    assert torch.equal(got.x, ref.x) and torch.equal(got.residual_norm, ref.residual_norm)
+    assert syncs <= -(-ref.iterations // k) + 1
+    if case == "max_iters":
+        assert ref.iterations == 10 and bool((ref.residual_norm > tol).any())
+    elif case == "converge":
+        assert ref.iterations < max_iters and bool((ref.residual_norm <= tol).all())
+        # the rows freeze at different iterations
+        early = tlin._batched_cg_rows(matvec, carry, b, tol, 3, x0, None).residual_norm
+        assert bool((early[:3] <= tol).all()) and bool((early[3:] > tol).all())
+
+
 def test_cg_solve_value_and_gradients_match_jax():
     m, d, rhs, c = _spd_problem()
 

@@ -126,6 +126,38 @@ def test_spans_nest_and_counts_roll_up():
     assert profiling.snapshot() == {"spans": [], "counts": {}}
 
 
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_a_tally_takes_this_threads_counts_and_keeps_no_span(on):
+    """What a CUDA graph's capture counts goes to the tally, on or off, for
+    its replays to add; another thread's counts and spans are kept."""
+    import threading
+
+    def other():
+        with profiling.span("other"):
+            profiling.count("c", 5)
+
+    if on:
+        profiling.enable()
+    with profiling.span("outer"):
+        with profiling.tally() as counts:
+            with profiling.span("captured"):
+                profiling.count("c", 2)
+                profiling.count("d")
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+        for name, n in counts.items():  # a replay
+            profiling.count(name, n)
+    assert counts == {"c": 2, "d": 1}
+    snap = profiling.snapshot()
+    if on:
+        assert [s["name"] for s in snap["spans"]] == ["outer", "other"]
+        assert snap["spans"][0]["counts"] == {"c": 2, "d": 1}
+        assert snap["counts"] == {"c": 7, "d": 1}
+    else:
+        assert snap == {"spans": [], "counts": {}}
+
+
 def test_a_lent_span_takes_in_another_threads_spans():
     import threading
 
@@ -229,6 +261,8 @@ def test_the_counts_inside_a_fit_are_its_solves(feats, monkeypatch):
     # the train block's count of its columns, once a fit
     assert c["host.syncs"] == sum(k + (k < SETTINGS.cg_max_iters) for k in solves) + 1
     assert c["lanczos.iterations"] == steps * SETTINGS.num_lanczos_iters
+    # the CPU keeps the one-iteration loop: no solve runs as a CUDA graph
+    assert "cg.graph_solves" not in c and "cg.graph_captures" not in c
     assert snap["counts"] == c
     step_counts = [s["counts"]["cg.iterations"] for s in snap["spans"] if s["name"] == "gp.step"]
     assert sum(step_counts) == c["cg.iterations"]
